@@ -1,0 +1,113 @@
+// Shared device code of the search kernels (flat_topk.cu, segment_topr.cu):
+// a register-tiled fp32 FFMA tile product and the monotone float -> int32
+// map of the segment kernel.
+//
+// The tile product keeps full fp32 (FFMA, no TF32 tensor cores): the
+// reference computes these dots at Precision.HIGHEST, and TF32's ~3 decimal
+// digits would swap near-tie neighbours. 256 threads compute a
+// BM x BN = (16*TM) x (16*TN) block of q . db^T, staging BK = 16 columns
+// of each operand in shared memory per step.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace knn {
+
+constexpr int kThreads = 256;
+constexpr int kBK = 16;
+
+template <int TM, int TN>
+struct TileSmem {
+  static constexpr int BM = 16 * TM;
+  static constexpr int BN = 16 * TN;
+  // +4 keeps rows 16-byte aligned while breaking the store bank pattern
+  float a[kBK][BM + 4];
+  float b[kBK][BN + 4];
+  float a_sq[BM];
+  float b_sq[BN];
+};
+
+// acc[i][j] = dot(A[a0 + ty*TM + i], B[b0 + tx*TN + j]) over d columns,
+// rows past a_rows / b_rows read as zero. With `norms`, the squared row
+// norms of both blocks land in s.a_sq / s.b_sq (for l2). Ends with a
+// __syncthreads(), so s may be reused right after.
+template <int TM, int TN>
+__device__ __forceinline__ void tile_dots(
+    const float* __restrict__ A, int a_rows, int a0,
+    const float* __restrict__ B, int b_rows, int b0, int d, bool norms,
+    TileSmem<TM, TN>& s, float (&acc)[TM][TN]) {
+  constexpr int BM = TileSmem<TM, TN>::BM;
+  constexpr int BN = TileSmem<TM, TN>::BN;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  float sq = 0.f;
+
+  for (int k0 = 0; k0 < d; k0 += kBK) {
+    // consecutive threads read consecutive columns of one row (64-byte runs)
+#pragma unroll
+    for (int p = 0; p < TM; ++p) {
+      const int e = tid + kThreads * p;
+      const int m = e / kBK, kk = e % kBK;
+      const int row = a0 + m, col = k0 + kk;
+      s.a[kk][m] = (row < a_rows && col < d) ? A[(size_t)row * d + col] : 0.f;
+    }
+#pragma unroll
+    for (int p = 0; p < TN; ++p) {
+      const int e = tid + kThreads * p;
+      const int n = e / kBK, kk = e % kBK;
+      const int row = b0 + n, col = k0 + kk;
+      s.b[kk][n] = (row < b_rows && col < d) ? B[(size_t)row * d + col] : 0.f;
+    }
+    __syncthreads();
+    if (norms) {
+      if (tid < BM) {
+#pragma unroll
+        for (int kk = 0; kk < kBK; ++kk) sq = fmaf(s.a[kk][tid], s.a[kk][tid], sq);
+      } else if (tid < BM + BN) {
+        const int n = tid - BM;
+#pragma unroll
+        for (int kk = 0; kk < kBK; ++kk) sq = fmaf(s.b[kk][n], s.b[kk][n], sq);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = s.a[kk][ty * TM + i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = s.b[kk][tx * TN + j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  if (norms) {
+    if (tid < BM) s.a_sq[tid] = sq;
+    else if (tid < BM + BN) s.b_sq[tid - BM] = sq;
+  }
+  __syncthreads();
+}
+
+// Internal bigger-is-better similarity (ops/distance.py convention).
+template <int TM, int TN>
+__device__ __forceinline__ float tile_sim(const TileSmem<TM, TN>& s,
+                                          float dot, int i_local, int j_local,
+                                          bool l2) {
+  return l2 ? 2.f * dot - s.a_sq[i_local] - s.b_sq[j_local] : dot;
+}
+
+// Monotone float32-bits -> int32 map (an involution): int32 order of the
+// result equals float order of the input (reference: exact_pallas._ordered_int).
+__device__ __forceinline__ int32_t ordered_int(float v) {
+  const int32_t u = __float_as_int(v);
+  return u ^ ((u >> 31) & 0x7FFFFFFF);
+}
+
+}  // namespace knn

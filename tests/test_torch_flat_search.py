@@ -1,0 +1,122 @@
+"""The port's FlatIndex / knn_search / index files against the JAX package on
+the repo's fixtures (CPU, plain versions): ids equal, and .npz index files
+written by either package load in the other.
+
+Scores agree within rtol 1e-5 and an absolute 1e-6 of the operands' scale
+(|q|·|d| for ip, |q|² + |d|² for l2, 1 for cosine): torch's CPU matmul and
+XLA sum in different orders, and the clustered fixture's raw vectors have
+norms near 56, so a score near 0 carries the rounding of terms near 3000."""
+
+import numpy as np
+import pytest
+import torch
+
+from knn_for_homology_tpu.data import Dataset
+from knn_for_homology_tpu.data.fixtures import make_clustered, make_small_random
+from knn_for_homology_tpu.search import flat as jflat
+from knn_for_homology_tpu.search import io as jio
+from knn_for_homology_tpu_torch.device import resolve_device
+from knn_for_homology_tpu_torch.search import flat as tflat
+from knn_for_homology_tpu_torch.search import io as tio
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _scale(metric, *arrays):
+    norm = max([float(np.linalg.norm(a, axis=1).max()) for a in arrays] + [1.0])
+    return {"cosine": 1.0, "ip": norm * norm, "l2": 2 * norm * norm}[metric]
+
+
+def _same(got, want, scale=1.0):
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=RTOL, atol=ATOL * scale)
+
+
+@pytest.fixture(scope="module")
+def clustered(tmp_path_factory):
+    path = tmp_path_factory.mktemp("clustered")
+    make_clustered(path, seed=1234, n_families=8, n_train=6, n_test=3, dim=32)
+    return Dataset.from_dir(path)
+
+
+@pytest.fixture(scope="module")
+def small_random(tmp_path_factory):
+    path = tmp_path_factory.mktemp("random")
+    make_small_random(path)
+    return Dataset.from_dir(path)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "ip", "l2"])
+@pytest.mark.parametrize("k", [13, 40])
+def test_flat_index_matches_jax(clustered, metric, k):
+    train, test = clustered.load_train(), clustered.load_test()
+    want = jflat.FlatIndex(metric=metric).add(train).search(test, k)
+    got = tflat.FlatIndex(metric=metric, device="cpu").add(train).search(test, k)
+    _same(got, want, _scale(metric, train, test))
+
+
+def test_knn_search_small_random_matches_jax(small_random):
+    train, test = small_random.load_train(), small_random.load_test()
+    j_ids, j_scores, _ = jflat.knn_search(train, test, 13)
+    t_ids, t_scores, secs = tflat.knn_search(train, test, 13, device="cpu")
+    _same((t_scores, t_ids), (j_scores, j_ids), _scale("cosine"))
+    assert np.all(t_ids[:, 11:] == -1)  # 11 train rows, k = 13
+    assert secs >= 0.0
+
+
+def test_search_self_matches_jax(clustered):
+    train = clustered.load_train()
+    want = jflat.FlatIndex().add(train).search_self(5)
+    got = tflat.FlatIndex(device="cpu").add(train).search_self(5)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=RTOL, atol=ATOL)
+
+
+def test_add_twice_and_dims(clustered):
+    train = clustered.load_train()
+    index = tflat.FlatIndex(device="cpu").add(train[:20]).add(train[20:])
+    assert index.ntotal == train.shape[0] and index.dim == train.shape[1]
+    whole = tflat.FlatIndex(device="cpu").add(train)
+    _same(index.search(train[:4], 7), whole.search(train[:4], 7))
+
+
+@pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
+def test_npz_round_trip_across_packages(clustered, tmp_path, direction):
+    train, test = clustered.load_train(), clustered.load_test()
+    path = tmp_path / "index.faiss"  # any suffix: the exact name is kept
+    if direction == "jax_to_torch":
+        jio.write_index(jflat.FlatIndex(metric="l2").add(train), path)
+        loaded = tio.read_index(path, device="cpu")
+        assert isinstance(loaded, tflat.FlatIndex)
+    else:
+        tio.write_index(
+            tflat.FlatIndex(metric="l2", device="cpu").add(train), path
+        )
+        loaded = jio.read_index(path)
+        assert isinstance(loaded, jflat.FlatIndex)
+    assert path.exists() and loaded.metric == "l2"
+    want = jflat.FlatIndex(metric="l2").add(train).search(test, 9)
+    _same(loaded.search(test, 9), want, _scale("l2", train, test))
+
+
+def test_unported_backends_and_kinds_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tflat.FlatIndex(backend="approx", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tflat.FlatIndex(backend="sq8", device="cpu")
+    with pytest.raises(ValueError):
+        tflat.FlatIndex(backend="pallas", device="cpu")
+    np.savez(tmp_path / "lsh.npz", kind="lsh")
+    with pytest.raises(NotImplementedError):
+        tio.read_index(tmp_path / "lsh.npz", device="cpu")
+    with pytest.raises(ValueError, match="empty"):
+        tflat.FlatIndex(device="cpu").search(np.zeros((1, 4), np.float32), 3)
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
