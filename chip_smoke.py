@@ -3,21 +3,30 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main path — the reference's `seqvec_search` benchmark:
+Drives the port's two paths. The reference's `seqvec_search` benchmark —
 flat kNN → AUC1/TP → Smith-Waterman rescoring → AUC1/TP — at ProtT5-XL's
 width (d = 1024) on n = 131072 database vectors and 4096 queries, then the
-exact k = 1000 search on the same index. Phases:
+exact k = 1000 search on the same index; and the headline bench
+(knn_for_homology_tpu_torch/bench.py): flat all-vs-all at n = 131072,
+d = 1024, k = 1000 in every mode. Phases:
 
   1. environment: a CUDA device is required; prints the card and its limit;
-  2. build: compiles the three CUDA kernels from knn_for_homology_tpu_torch/
+  2. build: compiles the CUDA kernels from knn_for_homology_tpu_torch/
      csrc/ (a fresh checkout has no build) and prints the seconds;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, with times;
+     shapes its path gives it, with times (D, E, F: 1024 queries of the
+     bench's plan from plan_fingerprint, which must be the plan the recall
+     anchors hold at: W = 256, R = 7, R = 9 for sym2);
   4. the main path end to end (pipelines.benchmark.run on a seeded dataset
      written in the standard layout), launch counts reset just before;
-  5. exact k = 1000 through FlatIndex.search on the same index;
+  5. exact k = 1000 through FlatIndex.search on the same index; the
+     approx and sq8 backends reach kernels A and F;
   6. the small-input check: the same pipeline on a small fixture on the
-     card and on the CPU (plain versions) must give identical results.
+     card and on the CPU (plain versions) must give identical results;
+  7. the port's bench at the headline shape (default modes, plus sq8 so
+     kernel E runs, plus the sq8-sym2 high-recall point), launch counts
+     reset just before; its JSON line, recalls against the reference
+     algorithm's (0.9767 sq8-sym, 0.9813 approx, hi ≥ 0.985).
 
 Any failure raises, so the script exits non-zero without the result line.
 The last three lines are the card (nvidia-smi name, power limit), the
@@ -41,6 +50,13 @@ FAMILY_TRAIN = 32  # train members per family; one test member each
 HITS = 13
 AAS = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
 SCORE_ATOL = 1e-5  # fp32 sums of 1024 products in two different orders
+BENCH_K = 1000
+# the bench's plan (W, R) at n = 131072, k = 1000 by recall target, at which
+# the reference algorithm's recalls below were measured (ROADMAP,
+# BENCH_r05.json): 256 lanes, 512 passes (jbits = 9)
+ANCHOR_PLANS = {0.98: (256, 7), 0.995: (256, 9)}
+RECALL_ANCHORS = {"sq8-pq": 0.9767, "sq8-sym": 0.9767, "approx": 0.9813}
+HI_RECALL_MIN = 0.985
 
 
 def log(msg):
@@ -130,10 +146,11 @@ def write_dataset(out: Path, seed: int, n_fam=N_TEST, per_train=FAMILY_TRAIN,
 
 
 # ------------------------------------------------------------- checks
-def check_topk(name, got, want, db, queries):
-    """Kernel vs plain top-k: the sorted scores agree within SCORE_ATOL at
+def check_topk(name, got, want, db, queries, atol=SCORE_ATOL, exact_fn=None):
+    """Kernel vs plain top-k: the sorted scores agree within `atol` at
     every rank, ids agree except swaps among such near-equal scores (each
-    differing id's reported score is checked against an fp64 dot), and no
+    differing id's reported score is checked against an fp64 similarity,
+    `exact_fn(rows, ids)`, by default the dot of queries and db), and no
     row repeats an id. Returns (max abs score error, differing slots)."""
     import torch
 
@@ -142,18 +159,182 @@ def check_topk(name, got, want, db, queries):
     finite = torch.isfinite(wv)
     assert torch.equal(finite, torch.isfinite(gv)), f"{name}: -inf slots differ"
     err = float((gv[finite] - wv[finite]).abs().max()) if finite.any() else 0.0
-    assert err <= SCORE_ATOL, f"{name}: scores differ by {err}"
+    assert err <= atol, f"{name}: scores differ by {err}"
+    if exact_fn is None:
+        def exact_fn(rows, ids):
+            return (queries[rows].double() * db[ids].double()).sum(1)
     rows, cols = torch.nonzero(gi != wi, as_tuple=True)
     if rows.numel():
-        q64 = queries[rows].double()
         for ids, vals in ((gi, gv), (wi, wv)):
-            exact = (q64 * db[ids[rows, cols].long()].double()).sum(1)
+            exact = exact_fn(rows, ids[rows, cols].long())
             bad = (vals[rows, cols].double() - exact).abs().max()
-            assert bad <= SCORE_ATOL, f"{name}: a swapped id's score is off by {bad}"
+            assert bad <= atol, f"{name}: a swapped id's score is off by {bad}"
     srt = torch.sort(gi, dim=1).values
     dup = (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)
     assert not dup.any(), f"{name}: repeated ids in a row"
     return err, int(rows.numel())
+
+
+def bench_plan(recall_target):
+    """(W, R) the planner gives the bench; fails unless it is the plan the
+    recall anchors were measured at."""
+    from knn_for_homology_tpu_torch.ops.exact_cuda import plan_fingerprint
+
+    fp = plan_fingerprint(N_TRAIN, DIM, BENCH_K, recall_target=recall_target)
+    plan = (fp["db_tile"], fp["r_slots"])
+    assert plan == ANCHOR_PLANS[recall_target], (
+        f"plan {plan} at target {recall_target}: the recall anchors hold at"
+        f" {ANCHOR_PLANS[recall_target]}"
+    )
+    return plan
+
+
+def packed_atol(vals, jbits):
+    """Packed truncation (2^jbits float32 ulps of the largest value) plus
+    SCORE_ATOL: a decoded value is the similarity cut to 32 - jbits bits."""
+    import torch
+
+    top = float(vals[torch.isfinite(vals)].abs().max())
+    return top * 2.0 ** (jbits - 23) + SCORE_ATOL
+
+
+def check_packed_kernels(db, q, kernels):
+    """Phase 3 for kernels D, E, F at the bench's plan: D (fp32 and bf16
+    db) and E (cosine and l2) decoded and held like check_topk at the
+    packed tolerance; F's buffers (sym and sym2) bit-equal to plain."""
+    import torch
+
+    from knn_for_homology_tpu_torch.ops import packed_cuda as pc
+
+    w, r = bench_plan(0.98)
+    _, r_hi = bench_plan(0.995)
+    jbits = pc.pass_bits(N_TRAIN, w)
+    kern, plain = pc.segment_packed_kernel, pc.segment_packed_plain
+    line = f"[{q.shape[0]} x {N_TRAIN} x {DIM}, k={BENCH_K}, W={w}"
+
+    def decoded(buf):
+        return pc.decode_packed(buf, BENCH_K, w, jbits)
+
+    # D: native fp32 and bf16 (the bench's approx mode)
+    d_err, d_times = 0.0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        qd, dbd = q.to(dt).contiguous(), db.to(dt).contiguous()
+        args = (qd, dbd, w, r, "cosine")
+        got, want = decoded(kern(*args)), decoded(plain(*args))
+        err, swaps = check_topk(
+            f"D {dt}", got, want, dbd, qd, atol=packed_atol(want[0], jbits)
+        )
+        d_err = max(d_err, err)
+        d_times[dt] = (cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args)))
+        log(f"phase 3 kernel D segment_packed {dt} {line}, R={r}]:"
+            f" max_abs_err {err:.3g}, {swaps} near-tie swaps, "
+            f"{d_times[dt][0]:.3f} ms vs plain {d_times[dt][1]:.3f} ms")
+    ms, plain_ms = d_times[torch.bfloat16]
+    kernels["D"] = dict(
+        name="segment_packed", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
+        replaces="knn_for_homology_tpu/ops/exact_pallas.py:199",
+        max_abs_err=d_err, ms=ms, plain_ms=plain_ms,
+    )
+
+    # E: int8 db + row scales, bf16 queries, cosine and l2
+    pq = pc.quantize_database(db)
+    qb = q.to(torch.bfloat16).contiguous()
+    e_err, e_times = 0.0, {}
+    for metric in ("cosine", "l2"):
+        args = (qb, pq.db_i8, w, r, metric, "sq8", pq.scales)
+
+        def exact_e(rows, ids, metric=metric):
+            qq = qb[rows].double()
+            x = pq.db_i8[ids].double()
+            sc = pq.scales[ids].double()
+            sims = (qq * x).sum(1) * sc
+            if metric == "l2":
+                sims = 2 * sims - (qq * qq).sum(1) - (x * x).sum(1) * sc * sc
+            return sims
+
+        got, want = decoded(kern(*args)), decoded(plain(*args))
+        err, swaps = check_topk(
+            f"E {metric}", got, want, None, None,
+            atol=packed_atol(want[0], jbits), exact_fn=exact_e,
+        )
+        e_err = max(e_err, err)
+        e_times[metric] = (cuda_ms(lambda: kern(*args)),
+                           cuda_ms(lambda: plain(*args)))
+        log(f"phase 3 kernel E segment_packed_sq8 {metric} {line},"
+            f" R={r}]: max_abs_err {err:.3g}, {swaps} near-tie swaps,"
+            f" {e_times[metric][0]:.3f} ms vs plain {e_times[metric][1]:.3f} ms")
+    ms, plain_ms = e_times["cosine"]
+    kernels["E"] = dict(
+        name="segment_packed_sq8", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
+        replaces="knn_for_homology_tpu/ops/exact_pallas.py:219",
+        max_abs_err=e_err, ms=ms, plain_ms=plain_ms,
+    )
+
+    # F: int8 queries (sym, R = 7; sym2, R = 9), buffers bit-equal
+    f_times = {}
+    for storage, r_f in (("sq8-sym", r), ("sq8-sym2", r_hi)):
+        q8, q_lo, _ = pc.quantize_queries(q, storage == "sq8-sym2")
+        args = (q8, pq.db_i8, w, r_f, "cosine", storage, pq.scales, q_lo)
+        got, want = kern(*args), plain(*args)
+        assert torch.equal(got, want), (
+            f"F {storage}: {int((got != want).sum())} slots differ from plain"
+        )
+        f_times[storage] = (cuda_ms(lambda: kern(*args)),
+                            cuda_ms(lambda: plain(*args)))
+        log(f"phase 3 kernel F segment_packed_sq8sym {storage} {line},"
+            f" R={r_f}]: buffers bit-equal, {f_times[storage][0]:.3f} ms vs"
+            f" plain {f_times[storage][1]:.3f} ms")
+    ms, plain_ms = f_times["sq8-sym"]
+    kernels["F"] = dict(
+        name="segment_packed_sq8sym", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
+        replaces="knn_for_homology_tpu/ops/exact_pallas.py:266",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+    )
+
+
+def run_bench(kernels):
+    """Phase 7: the port's bench at the headline shape, counts from zero."""
+    import torch
+
+    from knn_for_homology_tpu_torch import bench
+    from knn_for_homology_tpu_torch.ops import exact_cuda, packed_cuda
+
+    args = bench.parse_args(["--modes", "sq8-pq,approx,exact,sq8-sym,sq8"])
+    launches = packed_cuda.segment_packed_kernel.launches
+    for key in launches:
+        launches[key] = 0
+    exact_cuda.segment_topr_kernel.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = bench.run(args)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(json.dumps(result), flush=True)
+    b_launches = exact_cuda.segment_topr_kernel.launches
+    assert b_launches > 0, "kernel B was not launched by the bench"
+    for key in ("D", "E", "F"):
+        assert launches[key] > 0, f"kernel {key} was not launched by the bench"
+        kernels[key]["launches"] = launches[key]
+    recalls = {"sq8-pq": result["recall_vs_exact"],
+               "sq8-sym": result["sq8-sym_recall"],
+               "approx": result["approx_recall"]}
+    for mode, anchor in RECALL_ANCHORS.items():
+        assert abs(recalls[mode] - anchor) <= 0.01, (
+            f"{mode} recall {recalls[mode]} is not within 0.01 of {anchor}"
+        )
+    assert result["hi_recall"] >= HI_RECALL_MIN, result["hi_recall"]
+    for key, value in result.items():
+        assert key == "config" or isinstance(value, str) or math.isfinite(value)
+    log(f"phase 7 bench n={args.n} d={args.d} k={args.k}: "
+        + ", ".join(f"{m} {result[m + '_qps']:.0f} q/s" for m in args.mode_list)
+        + f", hi {result['hi_recall_qps']:.0f} q/s | recalls {recalls},"
+        f" sq8 {result['sq8_recall']}, hi {result['hi_recall']} |"
+        f" launches D {launches['D']} E {launches['E']} F {launches['F']}"
+        f" B {b_launches} | run {wall:.1f} s | peak {peak / 2**30:.2f} GiB")
 
 
 def main() -> None:
@@ -174,7 +355,12 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from knn_for_homology_tpu_torch.ops import _build
     from knn_for_homology_tpu_torch.ops import align as align_ops
-    from knn_for_homology_tpu_torch.ops import align_cuda, exact_cuda, flat_cuda
+    from knn_for_homology_tpu_torch.ops import (
+        align_cuda,
+        exact_cuda,
+        flat_cuda,
+        packed_cuda,
+    )
     from knn_for_homology_tpu_torch.ops.distance import l2_normalize
     from knn_for_homology_tpu_torch.pipelines import benchmark
     from knn_for_homology_tpu_torch.search.flat import FlatIndex
@@ -236,6 +422,8 @@ def main() -> None:
             f" {suspect} suspect rows, {ms:.3f} ms vs plain {plain_ms:.3f} ms;"
             f" forced R=2 with rescue vs full sort: max_abs_err {err_r:.3g},"
             f" {swaps_r} swaps")
+
+        check_packed_kernels(db, q_all[:1024].contiguous(), kernels)
 
         # planner blocks from the main path's own mix (each test query
         # against its family's first 13 train members), plus one 700-aa
@@ -360,6 +548,24 @@ def main() -> None:
             f" the plain full sort but {swaps} near-tie swaps, max_abs_err"
             f" {err:.3g} | main-path launches {launches}")
 
+        # the approx and sq8 backends on the same vectors: approx at k = 13
+        # is kernel A's exact search, sq8 at k = 1000 runs kernel F
+        a_before = flat_cuda.flat_topk_kernel.launches
+        f_before = packed_cuda.segment_packed_kernel.launches["F"]
+        _, a_ids = FlatIndex(device="cuda", backend="approx").add(
+            train).search(test, HITS)
+        assert flat_cuda.flat_topk_kernel.launches > a_before
+        assert np.array_equal(a_ids, ids13), "approx k=13 differs from exact"
+        _, s_ids = FlatIndex(device="cuda", backend="sq8").add(
+            train).search(qk, 1000)
+        assert packed_cuda.segment_packed_kernel.launches["F"] > f_before
+        s_recall = float(np.mean(
+            [len(set(a) & set(b)) / 1000 for a, b in zip(s_ids, ids)]
+        ))
+        assert s_recall >= 0.9, f"sq8 backend recall {s_recall}"
+        log(f"phase 5 backends: approx k=13 ids equal to exact (kernel A),"
+            f" sq8 k=1000 recall {s_recall:.4f} against exact (kernel F)")
+
     # ---- phase 6: small input, card vs CPU through the same pipeline
     with tempfile.TemporaryDirectory(prefix="knn_small_") as tmp:
         # short sequences keep the CPU side (plain versions) quick
@@ -373,8 +579,11 @@ def main() -> None:
             assert a[0] == b[0] and a[1] == b[1] and a[2] == b[2], a[0]
         log("phase 6 small input: card and CPU agree on every AUC1/TP")
 
+    # ---- phase 7: the headline bench
+    run_bench(kernels)
+
     log(card)
-    print(json.dumps({"kernels": [kernels[k] for k in ("A", "B", "C")]}))
+    print(json.dumps({"kernels": [kernels[k] for k in "ABCDEF"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

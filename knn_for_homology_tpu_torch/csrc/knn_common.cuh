@@ -1,18 +1,26 @@
-// Shared device code of the search kernels (flat_topk.cu, segment_topr.cu):
-// a register-tiled fp32 FFMA tile product and the monotone float -> int32
-// map of the segment kernel.
+// Shared device code of the search kernels (flat_topk.cu, segment_topr.cu,
+// segment_packed.cu): a register-tiled fp32 FFMA tile product and the
+// monotone float -> int32 map of the segment kernels.
 //
 // The tile product keeps full fp32 (FFMA, no TF32 tensor cores): the
 // reference computes these dots at Precision.HIGHEST, and TF32's ~3 decimal
 // digits would swap near-tie neighbours. 256 threads compute a
 // BM x BN = (16*TM) x (16*TN) block of q . db^T, staging BK = 16 columns
-// of each operand in shared memory per step.
+// of each operand in shared memory per step. Operands may be float, bf16
+// or int8; they are widened to float (exactly) when staged.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace knn {
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 
 constexpr int kThreads = 256;
 constexpr int kBK = 16;
@@ -32,10 +40,10 @@ struct TileSmem {
 // rows past a_rows / b_rows read as zero. With `norms`, the squared row
 // norms of both blocks land in s.a_sq / s.b_sq (for l2). Ends with a
 // __syncthreads(), so s may be reused right after.
-template <int TM, int TN>
+template <int TM, int TN, typename TA, typename TB>
 __device__ __forceinline__ void tile_dots(
-    const float* __restrict__ A, int a_rows, int a0,
-    const float* __restrict__ B, int b_rows, int b0, int d, bool norms,
+    const TA* __restrict__ A, int a_rows, int a0,
+    const TB* __restrict__ B, int b_rows, int b0, int d, bool norms,
     TileSmem<TM, TN>& s, float (&acc)[TM][TN]) {
   constexpr int BM = TileSmem<TM, TN>::BM;
   constexpr int BN = TileSmem<TM, TN>::BN;
@@ -54,14 +62,16 @@ __device__ __forceinline__ void tile_dots(
       const int e = tid + kThreads * p;
       const int m = e / kBK, kk = e % kBK;
       const int row = a0 + m, col = k0 + kk;
-      s.a[kk][m] = (row < a_rows && col < d) ? A[(size_t)row * d + col] : 0.f;
+      s.a[kk][m] =
+          (row < a_rows && col < d) ? to_float(A[(size_t)row * d + col]) : 0.f;
     }
 #pragma unroll
     for (int p = 0; p < TN; ++p) {
       const int e = tid + kThreads * p;
       const int n = e / kBK, kk = e % kBK;
       const int row = b0 + n, col = k0 + kk;
-      s.b[kk][n] = (row < b_rows && col < d) ? B[(size_t)row * d + col] : 0.f;
+      s.b[kk][n] =
+          (row < b_rows && col < d) ? to_float(B[(size_t)row * d + col]) : 0.f;
     }
     __syncthreads();
     if (norms) {

@@ -1,8 +1,9 @@
 """Build the CUDA kernels in csrc/ at first use and bind them with ctypes.
 
-Every `csrc/*.cu` compiles in ONE nvcc call into a shared library with a
-plain C interface (no PyTorch headers: seconds instead of minutes). The
-library lands in `build/torch_kernels/` at the repository root (git-ignored),
+Every `csrc/*.cu` compiles in its own nvcc process, all started together,
+and one more nvcc call links the objects into a shared library with a plain
+C interface (no PyTorch headers: seconds instead of minutes). The library
+lands in `build/torch_kernels/` at the repository root (git-ignored),
 named by a hash of the sources and flags, so an edited kernel rebuilds and
 an unchanged one loads from disk. Pointers and the stream travel as
 `ctypes.c_void_p`; every entry point returns `cudaGetLastError()` after its
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _P = ctypes.c_void_p
@@ -34,6 +35,10 @@ SIGNATURES = {
     "knn_flat_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, db, buf_v, buf_i, q_n, n, d, w, r, l2, stream
     "knn_segment_topr": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, q_lo, db, scales, buf, q_n, n, d, w, r, jbits, variant, l2, stream
+    "knn_segment_packed": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
     # q, t_jk, blosum, state, out, g, lq, lt, k, segments, gap_first,
     # gap_ext, stream
     "knn_sw_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -69,21 +74,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libknn_kernels_{_digest()}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the output of any failure."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for cmd in cmds
+    ]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless this exact source set is already built."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in sources() if p.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    tmp.replace(out)  # atomic: a concurrent loader never sees half a file
+    stem = out.with_suffix(f".{os.getpid()}")
+    nvcc = _nvcc()
+    units = [p for p in sources() if p.suffix == ".cu"]
+    objs = [Path(f"{stem}.{p.stem}.o") for p in units]
+    tmp = Path(f"{stem}.tmp")
+    try:
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(units, objs)
+        ])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        tmp.replace(out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return out
 
 

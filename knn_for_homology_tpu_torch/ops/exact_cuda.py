@@ -13,6 +13,11 @@ by a full plain sort once R ≥ 32: exactness is unconditional.
 A CUDA tensor goes to the kernel; a CPU tensor to `segment_topr_plain`,
 which builds the same buffer in plain PyTorch. The epilogue is PyTorch on
 either device, as it was XLA outside the Pallas kernel.
+
+The planner (`plan`, `plan_fingerprint`) also sizes the packed approx
+kernels of ops/packed_cuda.py: R from the recall target (`r_for_recall`)
+instead of the certificate's bound. W and R decide which ids survive, so
+they follow the reference's `_plan` rules exactly.
 """
 
 import math
@@ -29,6 +34,11 @@ INT32_MIN = -(2**31)
 # Bound on the [QB, R·W] candidate buffers (int32 value + int32 pass index)
 # per query block; the epilogue's int64 sort keys add as much again.
 CANDIDATE_BYTES = 1 << 30
+
+# queries per CUDA block of kernel B (csrc/segment_topr.cu: BM) and of
+# kernels D/E/F at every R (csrc/segment_packed.cu: route, BM = 16 * TM)
+SEGMENT_TOPR_QUERIES = 32
+SEGMENT_PACKED_QUERIES = 32
 
 
 def _ordered_int(u: torch.Tensor) -> torch.Tensor:
@@ -58,10 +68,30 @@ def r_for_exact(k: int, db_tile: int, per_row_target: float = 3e-3) -> int:
     return 64
 
 
-def default_db_tile(k_eff: int) -> int:
-    """Segment count W the entry point starts from (the db_tile half of the
-    reference's default_plan_inputs): narrow segments for large k."""
-    return 256 if k_eff >= 128 else 1024
+def r_for_recall(k: int, db_tile: int, recall_target: float) -> int:
+    """Smallest per-segment slot count R whose expected element loss meets
+    the recall target (the approx regime). Top-k elements land in segments
+    ~Poisson(λ = k/W); a segment drops E[(X-R)+] of them, so the missed
+    fraction is E[(X-R)+]/λ."""
+    lam = max(k / db_tile, 1e-9)
+    for r in range(1, 65):
+        loss = sum(
+            (x - r) * math.exp(-lam) * lam**x / math.factorial(x)
+            for x in range(r + 1, r + 40)
+        )
+        if loss / lam <= (1.0 - recall_target):
+            return r
+    return 64
+
+
+def default_db_tile(k_eff: int, n: int = None, exact: bool = True) -> int:
+    """Segment count W the entry points start from (the db_tile half of the
+    reference's default_plan_inputs). Exact: narrow segments for large k.
+    Approx: 256, widened for n > 2^20 so the packed pass-index field leaves
+    the value enough bits."""
+    if exact:
+        return 256 if k_eff >= 128 else 1024
+    return max(256, _round_up(n // 4096, 128) if n > 2**20 else 256)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -69,16 +99,48 @@ def _round_up(x: int, m: int) -> int:
 
 
 def plan(n: int, k_eff: int, db_tile: int, r_slots: int = None,
-         exact_row_target: float = 3e-3) -> Tuple[int, int]:
-    """(W, R) for a search. R·W candidates must cover k with headroom, and
+         exact_row_target: float = 3e-3, exact: bool = True,
+         recall_target: float = 0.95) -> Tuple[int, int]:
+    """(W, R) for a search: the reference planner's rules, which decide the
+    surviving ids. Exact: R·W candidates must cover k with headroom, and
     the striding argument needs W ~ k, so R grows until R·W ≥ max(2k, k+W)
-    — correctness-relevant: the certificate assumes it."""
+    — correctness-relevant: the certificate assumes it. Approx: R from the
+    recall target (`r_slots` is ignored, as in the reference), grown until
+    R·W ≥ k."""
     db_tile = min(db_tile, max(128, _round_up(n, 128)))
-    if r_slots is None:
+    if not exact:
+        r_slots = r_for_recall(k_eff, db_tile, recall_target)
+    elif r_slots is None:
         r_slots = r_for_exact(k_eff, db_tile, exact_row_target)
-    while r_slots * db_tile < max(2 * k_eff, k_eff + db_tile):
+    need = max(2 * k_eff, k_eff + db_tile) if exact else k_eff
+    while r_slots * db_tile < need:
         r_slots *= 2
     return db_tile, r_slots
+
+
+def plan_fingerprint(
+    n: int, d: int, k: int, exact: bool = False, storage: str = "native",
+    recall_target: float = 0.95, itemsize: int = 2,
+) -> dict:
+    """The kernel shape the public entry points would pick, for the bench
+    JSON (port of the reference's plan_fingerprint). W and R equal the
+    reference's for every input. `query_block` is this port's own: the
+    queries one CUDA block of the kernel owns (the reference reported its
+    VMEM query block there, which does not change results). `d` and
+    `itemsize` sized only that VMEM block, so they are unused here."""
+    del d, itemsize
+    k_eff = min(k, n)
+    db_tile, r_slots = plan(
+        n, k_eff, default_db_tile(k_eff, n, exact), exact=exact,
+        recall_target=recall_target,
+    )
+    return {
+        "db_tile": db_tile,
+        "query_block": SEGMENT_TOPR_QUERIES if exact
+        else SEGMENT_PACKED_QUERIES,
+        "r_slots": r_slots,
+        "storage": storage,
+    }
 
 
 def segment_topr_plain(
@@ -186,10 +248,22 @@ def exact_topk(
     metric: str = "cosine",
     db_tile: int = None,
     r_slots: int = None,
+    exact: bool = True,
+    recall_target: float = 0.95,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over the whole database (the large-k path). Returns
     (sims [Q, k] descending, ids [Q, k] int32) in the internal convention;
-    ids equal a full stable sort's, k > N pads with (-inf, -1)."""
+    ids equal a full stable sort's, k > N pads with (-inf, -1).
+
+    `exact=False` goes to the packed approx kernels (ops/packed_cuda.py) at
+    `recall_target`, as the reference's exact_pallas_topk does."""
+    if not exact:
+        from .packed_cuda import packed_topk
+
+        return packed_topk(
+            db, queries, k, metric=metric, db_tile=db_tile,
+            recall_target=recall_target,
+        )
     n = db.shape[0]
     q_n = queries.shape[0]
     if q_n == 0:

@@ -2,7 +2,7 @@
 
 Port of knn_for_homology_tpu/ops/flat_pallas.py:pallas_flat_topk. A CUDA
 tensor goes to the kernel; a CPU tensor to the plain version, which is
-ops/topk.py's stable top-k (the same function in plain PyTorch).
+ops/topk.py's `plain_topk` (the same function in plain PyTorch).
 """
 
 from typing import Tuple
@@ -11,7 +11,7 @@ import torch
 
 from . import _build
 from .distance import check_search_inputs
-from .topk import NEG_INF, flat_topk, pad_k
+from .topk import NEG_INF, pad_k, plain_topk
 
 MAX_KERNEL_K = 32
 
@@ -21,7 +21,7 @@ def flat_topk_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: (sims [Q, k], ids [Q, k] int32),
     value descending, lower id first on ties, (-inf, -1) past N."""
-    return flat_topk(db, queries, k, metric=metric)
+    return plain_topk(db, queries, k, metric=metric)
 
 
 def flat_topk_kernel(

@@ -1,7 +1,14 @@
-"""Plain PyTorch distance → top-k (port of knn_for_homology_tpu/ops/topk.py).
+"""Distance → top-k: the device router and the plain exact path (port of
+knn_for_homology_tpu/ops/topk.py).
 
-This is the formulation the JAX package runs off-TPU, and it is the plain
-reference of both top-k kernels (ops/flat_cuda.py, ops/exact_cuda.py):
+`flat_topk` is the one place that picks what serves a search. On a CUDA
+tensor: exact (and approx with k ≤ 32) k ≤ 32 → kernel A (ops/flat_cuda.py),
+exact k > 32 → kernel B (ops/exact_cuda.py), approx k > 32 and the sq8
+storages → kernels D/E/F (ops/packed_cuda.py). On a CPU tensor the packed
+route runs its plain version and the exact route runs `plain_topk`.
+
+`plain_topk` is the formulation the JAX package runs off-TPU, and the plain
+reference of kernels A and B:
 
   * one-shot  — one [QB, N] similarity block, one selection over the row;
   * streaming — a loop over database tiles carrying a [QB, k] winner set,
@@ -100,31 +107,18 @@ def streaming_topk(
     return pad_k(best_vals, best_ids, k)
 
 
-def flat_topk(
+def plain_topk(
     db: torch.Tensor,
     queries: torch.Tensor,
     k: int,
     metric: str = "cosine",
-    approx: bool = False,
     db_tile: int = 8192,
     query_block: int = 4096,
-    storage: str = "native",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k dispatcher over native fp32 storage: blocks queries and
-    picks one-shot vs streaming per block by similarity-buffer size.
-    Returns (sims, ids) in the internal bigger-is-better convention."""
-    if approx or storage != "native":
-        raise NotImplementedError(
-            "approx / sq8 selection is not ported yet (ROADMAP: packed and"
-            " sq8 segment kernels)"
-        )
+    """Exact top-k in plain PyTorch, on either device: blocks queries and
+    picks one-shot vs streaming per block by similarity-buffer size."""
     n = db.shape[0]
     q_n = queries.shape[0]
-    if q_n == 0:
-        return (
-            queries.new_zeros((0, k)),
-            torch.zeros((0, k), dtype=torch.int32, device=queries.device),
-        )
     qb = min(query_block, q_n) or 1
     while qb > 256 and qb * n * 4 > ONESHOT_SIM_BYTES:
         qb //= 2
@@ -141,3 +135,64 @@ def flat_topk(
         vals_out.append(vals)
         ids_out.append(ids)
     return torch.cat(vals_out, dim=0), torch.cat(ids_out, dim=0)
+
+
+def flat_topk(
+    db,
+    queries: torch.Tensor,
+    k: int,
+    metric: str = "cosine",
+    approx: bool = False,
+    recall_target: float = 0.95,
+    db_tile: int = 8192,
+    query_block: int = 4096,
+    storage: str = "native",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Strategy dispatcher. Returns (sims, ids) in the internal
+    bigger-is-better convention.
+
+    Routing follows the reference's accelerator route on every device:
+    `storage` "sq8" / "sq8-sym" / "sq8-sym2" (approx only; `db` may be an
+    `SQ8Database`, whose default storage is "sq8-sym", or "sq8" for l2) and
+    `approx=True` with k > 32 go to `packed_topk` (kernels D/E/F on a CUDA
+    tensor, their plain version on a CPU one). Approx with k ≤ 32 runs the
+    exact path: the reference used `approx_max_k` there, which torch lacks,
+    and an exact result is a valid approx one. The exact path is kernel A
+    (k ≤ 32) or B (k > 32) on a CUDA tensor (both take fp32) and
+    `plain_topk` on a CPU one.
+    `db_tile` and `query_block` shape `plain_topk` only."""
+    from .packed_cuda import SQ8Database, packed_topk
+
+    if isinstance(db, SQ8Database):
+        if storage == "native":
+            storage = "sq8-sym" if metric != "l2" else "sq8"
+    q_n = queries.shape[0]
+    if q_n == 0:
+        return (
+            torch.zeros((0, k), dtype=torch.float32, device=queries.device),
+            torch.zeros((0, k), dtype=torch.int32, device=queries.device),
+        )
+    if storage in ("sq8", "sq8-sym", "sq8-sym2"):
+        if not approx:
+            raise ValueError(
+                "storage='sq8' is an approx-mode storage (quantised scores"
+                " carry no exactness certificate)"
+            )
+        return packed_topk(
+            db, queries, k, metric=metric, recall_target=recall_target,
+            storage=storage,
+        )
+    if storage != "native":
+        raise ValueError(f"unknown storage {storage!r}")
+    if approx and k > 32:
+        return packed_topk(
+            db, queries, k, metric=metric, recall_target=recall_target
+        )
+    if queries.device.type != "cuda":
+        return plain_topk(db, queries, k, metric, db_tile, query_block)
+    from .exact_cuda import exact_topk
+    from .flat_cuda import MAX_KERNEL_K, flat_topk_kernel
+
+    if k <= MAX_KERNEL_K:
+        return flat_topk_kernel(db, queries, k, metric=metric)
+    return exact_topk(db, queries, k, metric=metric)

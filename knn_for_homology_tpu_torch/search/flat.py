@@ -6,11 +6,15 @@ API mirrors the search semantics the reference drives through FAISS:
     (reference: cath/search.py:13-26): ask k+1, drop the first column;
   * fp16/bf16 inputs are cast to fp32 before search.
 
-Routing on a CUDA device: k ≤ 32 → the fused small-k kernel
-(ops/flat_cuda.py), k > 32 → the exact segment-top-R kernel
-(ops/exact_cuda.py); both exact at any d. On the CPU: the plain PyTorch
-top-k of ops/topk.py, which is those kernels' reference. `backend="plain"`
-forces the plain path on either device.
+Backends, all routed by ops/topk.py:flat_topk (the kernels on a CUDA
+device, their plain versions on the CPU):
+  * "auto"   — exact: kernel A for k ≤ 32, kernel B for k > 32;
+  * "plain"  — exact, the plain PyTorch top-k on either device;
+  * "approx" — flat_topk(approx=True) at config.recall_target: kernel D
+               for k > 32, the exact kernel A for k ≤ 32;
+  * "sq8"    — packed segment-top-R over int8 storage + per-row scales
+               (kernel F for cosine / ip, E for l2), quantised once and
+               cached until the next add().
 """
 
 import time
@@ -23,15 +27,14 @@ from knn_for_homology_tpu.config import DEFAULT_HITS, SearchConfig
 
 from ..device import resolve_device
 from ..ops.distance import METRICS, finalize_scores, l2_normalize
-from ..ops.exact_cuda import exact_topk
-from ..ops.flat_cuda import MAX_KERNEL_K, flat_topk_kernel
-from ..ops.topk import flat_topk
+from ..ops.packed_cuda import quantize_database
+from ..ops.topk import flat_topk, plain_topk
 
-BACKENDS = ("auto", "plain")
+BACKENDS = ("auto", "plain", "approx", "sq8")
 
 
 class FlatIndex:
-    """Exact brute-force index over device-resident fp32 vectors."""
+    """Brute-force index over device-resident fp32 vectors."""
 
     def __init__(
         self,
@@ -42,11 +45,6 @@ class FlatIndex:
     ):
         if metric not in METRICS:
             raise ValueError(f"metric must be one of {METRICS}")
-        if backend in ("approx", "sq8"):
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported yet (ROADMAP: packed and"
-                " sq8 segment kernels)"
-            )
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}")
         self.metric = metric
@@ -54,6 +52,7 @@ class FlatIndex:
         self.backend = backend
         self.device = resolve_device(device)
         self._db: Optional[torch.Tensor] = None
+        self._db_sq8 = None  # quantize-once cache of the sq8 backend
 
     @property
     def ntotal(self) -> int:
@@ -74,17 +73,27 @@ class FlatIndex:
         here, not per query)."""
         v = self._to_device(vectors)
         self._db = v if self._db is None else torch.cat([self._db, v], 0)
+        self._db_sq8 = None  # vectors changed: invalidate the sq8 cache
         return self
 
     def _topk(self, q: torch.Tensor, k: int):
-        if self.backend == "plain" or self.device.type == "cpu":
-            return flat_topk(
+        if self.backend == "plain":
+            return plain_topk(
                 self._db, q, k, metric=self.metric,
                 db_tile=self.config.db_tile,
             )
-        if k <= MAX_KERNEL_K:
-            return flat_topk_kernel(self._db, q, k, metric=self.metric)
-        return exact_topk(self._db, q, k, metric=self.metric)
+        db, metric = self._db, self.metric
+        if self.backend == "sq8":
+            if self._db_sq8 is None:
+                self._db_sq8 = quantize_database(self._db)
+            # stored rows are normalised for cosine: ip ranks them alike
+            db = self._db_sq8
+            metric = "ip" if metric == "cosine" else metric
+        return flat_topk(
+            db, q, k, metric=metric, approx=self.backend != "auto",
+            recall_target=self.config.recall_target,
+            db_tile=self.config.db_tile,
+        )
 
     def search(
         self, queries: np.ndarray, k: int

@@ -14,8 +14,10 @@ import torch
 from knn_for_homology_tpu.data import Dataset
 from knn_for_homology_tpu.data.fixtures import make_clustered, make_small_random
 from knn_for_homology_tpu.search import flat as jflat
+from knn_for_homology_tpu.ops import topk as jtopk
 from knn_for_homology_tpu.search import io as jio
 from knn_for_homology_tpu_torch.device import resolve_device
+from knn_for_homology_tpu_torch.ops import topk as ttopk
 from knn_for_homology_tpu_torch.search import flat as tflat
 from knn_for_homology_tpu_torch.search import io as tio
 
@@ -100,10 +102,15 @@ def test_npz_round_trip_across_packages(clustered, tmp_path, direction):
 
 
 def test_unported_backends_and_kinds_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflat.FlatIndex(backend="approx", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflat.FlatIndex(backend="sq8", device="cpu")
+    # approx and sq8 are ported (tests/test_torch_packed.py); an unknown
+    # storage raises as in the JAX package, and so does the TPU-only
+    # "pallas" backend
+    train = np.random.RandomState(0).randn(40, 8).astype(np.float32)
+    db = torch.from_numpy(train)
+    with pytest.raises(ValueError, match="unknown storage"):
+        ttopk.flat_topk(db, db[:3], 5, approx=True, storage="pq")
+    with pytest.raises(ValueError, match="unknown storage"):
+        jtopk.flat_topk(train, train[:3], 5, approx=True, storage="pq")
     with pytest.raises(ValueError):
         tflat.FlatIndex(backend="pallas", device="cpu")
     np.savez(tmp_path / "lsh.npz", kind="lsh")

@@ -240,6 +240,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         flat_cuda.flat_topk_kernel(_t(db), _t(qs[:, :4]), 5)
     with pytest.raises(ValueError, match="W % 64"):
         exact_cuda.segment_topr_kernel(_t(db), _t(qs), 100, 4)
-    with pytest.raises(NotImplementedError):
-        ttopk.flat_topk(_t(db), _t(qs), 5, approx=True)
+    with pytest.raises(ValueError, match="unknown storage"):
+        ttopk.flat_topk(_t(db), _t(qs), 5, approx=True, storage="fp8")
+    with pytest.raises(ValueError, match="approx-mode"):
+        ttopk.flat_topk(_t(db), _t(qs), 5, storage="sq8-sym")
 
