@@ -1,4 +1,6 @@
-"""PyTorch + CUDA port of knn_for_homology_tpu's search-and-rescore path.
+"""PyTorch + CUDA port of knn_for_homology_tpu: the search-and-rescore path,
+the headline bench and the ProtT5 encoder path (sequences → pooled
+embeddings → neighbours).
 
 The JAX package next door stays the reference: every function here is held
 against its JAX counterpart on the same numpy inputs (tests/test_torch_*.py).
@@ -9,9 +11,11 @@ Device rule: a CUDA tensor goes to the hand-written kernel, a CPU tensor to
 the kernel's plain PyTorch version — callers choose with an explicit
 `device` argument, never by probing for a GPU.
 
-The dataset contract, metrics, figures, MMseqs2 formats and logging are
-shared with the JAX package (those modules import no jax), so there is one
-copy of each.
+The port imports nothing of the JAX package, not even its numpy-only
+modules: it keeps its own copies of config, data (dataset, fasta), eval
+(metrics, figures), interop (the MMseqs2 formats and drivers) and utils
+(logging, timing), held equal to the originals by
+tests/test_torch_shared_copies.py.
 """
 
 import torch

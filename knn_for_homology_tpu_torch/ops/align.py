@@ -22,6 +22,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 # residue order used for encoding sequences into score-matrix indices
 ALIGN_ALPHABET = "ARNDCQEGHILKMFPSTWYVBZX*"
 AA_INDEX = {aa: i for i, aa in enumerate(ALIGN_ALPHABET)}
@@ -278,7 +280,7 @@ def align_hits(
     g_block: int = 128,
     bucket: int = 128,
     convention: str = "mmseqs",
-    device="cpu",
+    device="cuda",
 ) -> Tuple[list, list]:
     """Align each query against its own hit list (the kNN-rescoring shape,
     reference: pfam/proteins.py:140-141's `mmseqs align` step). Returns
@@ -291,7 +293,7 @@ def align_hits(
 
     if len(queries) != len(hits):
         raise ValueError("queries and hits must have equal length")
-    device = torch.device(device)
+    device = resolve_device(device)
     if db_residues is None:
         db_residues = float(sum(len(t) for row in hits for t in row))
 

@@ -2,8 +2,8 @@
 (port of knn_for_homology_tpu/pipelines/benchmark.py).
 
 kNN search (flat or a saved index) → AUC1/TP + figure; kNN + alignment
-(native Smith-Waterman by default, `mmseqs align` through the shared
-interop bridge when the binary is installed); the full MMseqs2 search when
+(native Smith-Waterman by default, `mmseqs align` through the port's
+copy of the interop bridge when the binary is installed); the full MMseqs2 search when
 available; a printed summary table.
 
 Usage: python -m knn_for_homology_tpu_torch.pipelines.benchmark <dataset>
@@ -18,18 +18,14 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from knn_for_homology_tpu.config import DEFAULT_HITS
-from knn_for_homology_tpu.data.dataset import Dataset
-from knn_for_homology_tpu.eval.metrics import (
-    evaluate_rows,
-    evaluate_string_results,
-)
-from knn_for_homology_tpu.utils.logging import configure_logging
-
+from ..config import DEFAULT_HITS
+from ..data.dataset import Dataset
 from ..device import resolve_device
 from ..search.flat import knn_search
 from ..search.io import read_index
+from ..eval.metrics import evaluate_rows, evaluate_string_results
 from ..search.rescore import align_rescore
+from ..utils.logging import configure_logging
 
 logger = logging.getLogger(__name__)
 
@@ -66,7 +62,7 @@ def run(
 
     # --- kNN + alignment ---
     if aligner == "mmseqs":
-        from knn_for_homology_tpu import interop
+        from .. import interop
 
         interop.write_prefilter_db_data(
             data, np.arange(queries.shape[0]), ids, scores
@@ -87,10 +83,10 @@ def run(
     )
 
     # --- MMseqs2 full search (only with the binary) ---
-    from knn_for_homology_tpu.interop import find_mmseqs
+    from ..interop import find_mmseqs
 
     if find_mmseqs():
-        from knn_for_homology_tpu import interop
+        from .. import interop
 
         mmseqs_time = interop.search(data)
         mm_hits = interop.read_result_db(
@@ -102,7 +98,7 @@ def run(
         logger.info("mmseqs binary not found — skipping the MMseqs2 baseline")
 
     if figures:
-        from knn_for_homology_tpu.eval.figures import make_figure
+        from ..eval.figures import make_figure
 
         make_figure(data.path, [auc1s_knn], ["k-NN"], "AUC1", "auc1_knn.jpg")
         make_figure(

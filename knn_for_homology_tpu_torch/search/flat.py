@@ -23,8 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from knn_for_homology_tpu.config import DEFAULT_HITS, SearchConfig
-
+from ..config import DEFAULT_HITS, SearchConfig
 from ..device import resolve_device
 from ..ops.distance import METRICS, finalize_scores, l2_normalize
 from ..ops.packed_cuda import quantize_database

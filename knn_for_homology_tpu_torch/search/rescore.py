@@ -11,10 +11,9 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from knn_for_homology_tpu.config import E_VALUE_CUTOFF
-from knn_for_homology_tpu.data.dataset import Dataset
-from knn_for_homology_tpu.data.fasta import read_fasta
-
+from ..config import E_VALUE_CUTOFF
+from ..data.dataset import Dataset
+from ..data.fasta import read_fasta
 from ..ops.align import align_hits
 
 

@@ -1,7 +1,9 @@
-"""The PyTorch port must import no jax, directly or through anything it
-imports, and must not touch CUDA or build kernels at import time (the CPU
-tests import every module). Runs in a clean subprocess because this test
-process has imported jax long ago."""
+"""The PyTorch port must import neither jax nor anything of the JAX package
+(knn_for_homology_tpu), directly or through anything it imports, and must
+not touch CUDA or build kernels at import time (the CPU tests import every
+module). The same holds for chip_smoke.py, which runs on a machine without
+jax. Runs in a clean subprocess because this test process has imported jax
+long ago."""
 
 import re
 import subprocess
@@ -10,7 +12,9 @@ from pathlib import Path
 
 import pytest
 
-PORT = Path(__file__).resolve().parent.parent / "knn_for_homology_tpu_torch"
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "knn_for_homology_tpu_torch"
+SMOKE = ROOT / "chip_smoke.py"
 MODULES = sorted(
     ".".join(p.relative_to(PORT.parent).with_suffix("").parts)
     for p in PORT.rglob("*.py")
@@ -19,9 +23,12 @@ MODULES = sorted(
 CHECK = """
 import sys
 import torch
-for name in {modules!r}:
+for name in {modules!r} + ["chip_smoke"]:
     __import__(name)
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+leaked = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "knn_for_homology_tpu")
+)
 assert not leaked, leaked
 assert not torch.cuda.is_initialized(), "a module initialised CUDA at import"
 from knn_for_homology_tpu_torch.ops import _build
@@ -48,10 +55,16 @@ def test_port_imports_no_jax_and_no_cuda():
     assert "OK" in out.stdout
 
 
+# importing jax or the JAX package: forbidden in the port and in the smoke
+IMPORTS = [
+    r"^\s*(import|from)\s+jax\b",
+    r"^\s*(import|from)\s+knn_for_homology_tpu(\.|\s|$)",
+]
+
+
 @pytest.mark.parametrize(
     "pattern",
-    [
-        r"^\s*(import|from)\s+jax\b",
+    IMPORTS + [
         r"torch\.compile\b",
         r"scaled_dot_product_attention",
         r"cpp_extension\.load\b",
@@ -63,3 +76,10 @@ def test_port_source_has_no_forbidden_construct(pattern):
         if re.search(pattern, p.read_text(), flags=re.MULTILINE)
     ]
     assert not hits, hits
+
+
+# chip_smoke.py may time scaled_dot_product_attention as a yardstick, so
+# only the import rules apply to it
+@pytest.mark.parametrize("pattern", IMPORTS)
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package(pattern):
+    assert not re.search(pattern, SMOKE.read_text(), flags=re.MULTILINE)
