@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's two paths. The reference's `seqvec_search` benchmark —
+Drives the port's three paths. The reference's `seqvec_search` benchmark —
 flat kNN → AUC1/TP → Smith-Waterman rescoring → AUC1/TP — at ProtT5-XL's
 width (d = 1024) on n = 131072 database vectors and 4096 queries, then the
 exact k = 1000 search on the same index; and the headline bench
 (knn_for_homology_tpu_torch/bench.py): flat all-vs-all at n = 131072,
-d = 1024, k = 1000 in every mode. Phases:
+d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
+→ pooled embeddings → neighbours. Phases:
 
   1. environment: a CUDA device is required; prints the card and its limit;
   2. build: compiles the CUDA kernels from knn_for_homology_tpu_torch/
@@ -26,7 +27,20 @@ d = 1024, k = 1000 in every mode. Phases:
   7. the port's bench at the headline shape (default modes, plus sq8 so
      kernel E runs, plus the sq8-sym2 high-recall point), launch counts
      reset just before; its JSON line, recalls against the reference
-     algorithm's (0.9767 sq8-sym, 0.9813 approx, hi ≥ 0.985).
+     algorithm's (0.9767 sq8-sym, 0.9813 approx, hi ≥ 0.985);
+  8. the encoder path: ProtT5-XL at full width (24 layers, bf16, random
+     weights from a seeded torch.Generator on the card) embeds 1028
+     proteins (32 families x 32 of the length mix, plus four long ones
+     for the flash route) in 7000-token batches, then l2 and a FlatIndex
+     k = 13 search, launch counts reset just before (G, H, A); an opt-in
+     short-attention run (I); device time by kernel over warm batches;
+     the kernels' route against the plain versions' on 32 proteins.
+
+Phase 3 also holds the encoder's kernels at full width: G at 7000 tokens x
+1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128,
+with scaled_dot_product_attention timed beside H and I as the library
+yardstick. Every kernel's line carries its bound: the least time the card
+could take, from its operations and bytes (PEAK_OPS, HBM_BYTES_PER_S).
 
 Any failure raises, so the script exits non-zero without the result line.
 The last three lines are the card (nvidia-smi name, power limit), the
@@ -34,6 +48,8 @@ kernels' JSON summary and {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -57,6 +73,35 @@ BENCH_K = 1000
 ANCHOR_PLANS = {0.98: (256, 7), 0.995: (256, 9)}
 RECALL_ANCHORS = {"sq8-pq": 0.9767, "sq8-sym": 0.9767, "approx": 0.9813}
 HI_RECALL_MIN = 0.985
+# published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet), by the
+# operands' type, and its memory rate: the bound of a kernel is the larger
+# of its operations over the peak and its bytes over the memory rate
+PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
+# Smith-Waterman cell: substitution lookup + add, two gap updates of two
+# ops each, a four-way max, the running best: ~10 scalar ops at fp32 rate
+SW_OPS_PER_CELL = 10
+# kernel vs plain in bf16: both round their result once from fp32 sums taken
+# in other orders (H's p also at other running maxima), an ulp or two apart;
+# allowed: 2^-6 of the largest |value| (4 bf16 ulps there)
+BF16_TOL = 2.0**-6
+# phase 8: ProtT5-XL over 32 families x (31 train + 1 test) proteins of the
+# length mix, plus four long ones (the last is cut to 3096) for the flash
+# route, in batches of at most 7000 tokens
+ENC_FAMILIES, ENC_TRAIN = 32, 31
+LONG_LENGTHS = (2048, 2600, 3096, 3500)
+TOKEN_BUDGET = 7000
+# phase 8, pooled vectors of two routes on the card (the kernels' and the
+# plain versions'; the short kernel's and dense attention), per protein.
+# Random T5 weights leave the unscaled q.k logits with a standard deviation
+# near sqrt(128) = 11, so each softmax is nearly an argmax, and a one-ulp
+# change of q or k (2^-8) moves a row's weight between two near-equal keys;
+# 24 layers of such switches, averaged over the residues, measured a cosine
+# of 0.9951 and a relative L2 error of 0.099 (H100, 700 W). Allowed: a
+# cosine of 0.98 and a relative L2 error of 0.2 (each kernel alone is held
+# to BF16_TOL in phase 3)
+ENC_MIN_COSINE = 0.98
+ENC_MAX_REL_ERR = 0.2
 
 
 def log(msg):
@@ -86,6 +131,20 @@ def cuda_ms(fn, reps=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops, kind, nbytes):
+    """Least time the card could take (ms) and what bounds it: `ops`
+    operations at the peak for `kind` operands, or `nbytes` (each input
+    read once, each output written once) at the memory rate."""
+    ops_ms = ops / PEAK_OPS[kind] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
 # --------------------------------------------------------------- data
@@ -217,10 +276,14 @@ def check_packed_kernels(db, q, kernels):
 
     # D: native fp32 and bf16 (the bench's approx mode)
     d_err, d_times = 0.0, {}
+    q_n, flops = q.shape[0], 2 * q.shape[0] * N_TRAIN * DIM
     for dt in (torch.float32, torch.bfloat16):
         qd, dbd = q.to(dt).contiguous(), db.to(dt).contiguous()
         args = (qd, dbd, w, r, "cosine")
-        got, want = decoded(kern(*args)), decoded(plain(*args))
+        raw = kern(*args)
+        d_bound = bound(flops, "bf16" if dt == torch.bfloat16 else "fp32",
+                        tensor_bytes(qd, dbd, raw))
+        got, want = decoded(raw), decoded(plain(*args))
         err, swaps = check_topk(
             f"D {dt}", got, want, dbd, qd, atol=packed_atol(want[0], jbits)
         )
@@ -234,7 +297,8 @@ def check_packed_kernels(db, q, kernels):
         name="segment_packed", route="cuda",
         source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
         replaces="knn_for_homology_tpu/ops/exact_pallas.py:199",
-        max_abs_err=d_err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=d_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **d_bound,
     )
 
     # E: int8 db + row scales, bf16 queries, cosine and l2
@@ -253,7 +317,11 @@ def check_packed_kernels(db, q, kernels):
                 sims = 2 * sims - (qq * qq).sum(1) - (x * x).sum(1) * sc * sc
             return sims
 
-        got, want = decoded(kern(*args)), decoded(plain(*args))
+        raw = kern(*args)
+        if metric == "cosine":  # int8 db x bf16 queries, upcast: bf16 rate
+            e_bound = bound(flops, "bf16", tensor_bytes(qb, pq.db_i8,
+                                                        pq.scales, raw))
+        got, want = decoded(raw), decoded(plain(*args))
         err, swaps = check_topk(
             f"E {metric}", got, want, None, None,
             atol=packed_atol(want[0], jbits), exact_fn=exact_e,
@@ -269,7 +337,8 @@ def check_packed_kernels(db, q, kernels):
         name="segment_packed_sq8", route="cuda",
         source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
         replaces="knn_for_homology_tpu/ops/exact_pallas.py:219",
-        max_abs_err=e_err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=e_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **e_bound,
     )
 
     # F: int8 queries (sym, R = 7; sym2, R = 9), buffers bit-equal
@@ -278,6 +347,9 @@ def check_packed_kernels(db, q, kernels):
         q8, q_lo, _ = pc.quantize_queries(q, storage == "sq8-sym2")
         args = (q8, pq.db_i8, w, r_f, "cosine", storage, pq.scales, q_lo)
         got, want = kern(*args), plain(*args)
+        if storage == "sq8-sym":
+            f_bound = bound(flops, "int8", tensor_bytes(q8, pq.db_i8,
+                                                        pq.scales, got))
         assert torch.equal(got, want), (
             f"F {storage}: {int((got != want).sum())} slots differ from plain"
         )
@@ -291,7 +363,8 @@ def check_packed_kernels(db, q, kernels):
         name="segment_packed_sq8sym", route="cuda",
         source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
         replaces="knn_for_homology_tpu/ops/exact_pallas.py:266",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **f_bound,
     )
 
 
@@ -335,6 +408,323 @@ def run_bench(kernels):
         f" sq8 {result['sq8_recall']}, hi {result['hi_recall']} |"
         f" launches D {launches['D']} E {launches['E']} F {launches['F']}"
         f" B {b_launches} | run {wall:.1f} s | peak {peak / 2**30:.2f} GiB")
+
+
+def check_bf16(name, got, want, tol=BF16_TOL):
+    """Kernel vs plain in bf16: finite, same shape, max |got - want| ≤ tol
+    of the largest |want|. Returns the max abs error."""
+    import torch
+
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    assert bool(torch.isfinite(got.float()).all()), f"{name}: not finite"
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert err <= tol * scale, f"{name}: max_abs_err {err} > {tol} x {scale}"
+    return err
+
+
+def check_encoder_kernels(kernels, seed):
+    """Phase 3 for kernels G, H, I at ProtT5-XL's width, each against its
+    plain version on the same inputs (BF16_TOL), timed beside its bound;
+    scaled_dot_product_attention with the same float bias and mask and
+    scale 1 is H's and I's library yardstick (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from knn_for_homology_tpu_torch.models import t5
+    from knn_for_homology_tpu_torch.ops import ffn_cuda, flash_cuda, short_cuda
+    from knn_for_homology_tpu_torch.ops.ffn import fused_ffn_plain
+    from knn_for_homology_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+        offset_bias_table,
+    )
+    from knn_for_homology_tpu_torch.ops.short_attention import (
+        short_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed + 7)
+    cfg = t5.PROTT5_XL
+
+    def randn(*shape, scale=1.0):
+        out = torch.randn(shape, generator=gen, device=dev) * scale
+        return out.to(torch.bfloat16)
+
+    # G: one batch of the token budget, d_model 1024, d_ff 16384
+    t_n, d, f = TOKEN_BUDGET, cfg.d_model, cfg.d_ff
+    g_args = (randn(t_n, d, scale=2.0), randn(d, scale=0.1) + 1.0,
+              randn(d, f, scale=d**-0.5), randn(f, d, scale=f**-0.5))
+    got = ffn_cuda.fused_ffn_t5(*g_args)
+    err = check_bf16("G", got, fused_ffn_plain(*g_args))
+    ms = cuda_ms(lambda: ffn_cuda.fused_ffn_t5(*g_args))
+    plain_ms = cuda_ms(lambda: fused_ffn_plain(*g_args))
+    kernels["G"] = dict(
+        name="ffn_fused", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/ffn_fused.cu",
+        replaces="knn_for_homology_tpu/ops/ffn_pallas.py:30",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(4 * t_n * d * f, "bf16", tensor_bytes(*g_args, got)),
+    )
+    log(f"phase 3 kernel G ffn_fused [T={t_n}, D={d}, F={f}]: max_abs_err"
+        f" {err:.3g}, {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound"
+        f" {kernels['G']['bound_ms']:.3f} ms ({kernels['G']['bound_by']})")
+
+    rel = randn(cfg.rel_buckets, cfg.num_heads, scale=0.1)
+
+    def attention_case(name, b, l, lengths, fn, plain, bias, dense_bias):
+        q, k, v = (randn(b, cfg.num_heads, l, cfg.d_kv) for _ in range(3))
+        mask = torch.arange(l, device=dev)[None, :] < torch.tensor(
+            lengths, device=dev)[:, None]
+        got = fn(q, k, v, mask, bias)
+        err = check_bf16(name, got, plain(q, k, v, mask, bias))
+        ms = cuda_ms(lambda: fn(q, k, v, mask, bias))
+        plain_ms = cuda_ms(lambda: plain(q, k, v, mask, bias))
+        attn = (dense_bias[None] + torch.where(mask, 0.0, -1e9)[:, None, None, :]
+                ).to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn, scale=1.0))
+        del attn
+        ops = 4 * b * cfg.num_heads * l * l * cfg.d_kv
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    **bound(ops, "bf16", tensor_bytes(q, k, v, mask, bias, got)))
+
+    def dense_from_table(table, l):
+        pos = torch.arange(l, device=dev)
+        return table[:, pos[None, :] - pos[:, None] + l - 1]
+
+    # H: the longest batch, 2 rows padded to 3200 (the 3096 cut + EOS)
+    l = 3200
+    table = offset_bias_table(rel, l, cfg.rel_buckets, cfg.rel_max_distance)
+    kernels["H"] = dict(
+        name="flash_t5", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/flash_t5.cu",
+        replaces="knn_for_homology_tpu/ops/flash_attention.py:53",
+        **attention_case("H", 2, l, [3097, 2601],
+                         flash_cuda.flash_attention_t5, flash_attention_plain,
+                         table, dense_from_table(table, l)),
+    )
+    # I: the opt-in short route at its limit, 13 rows of 512
+    l = 512
+    bias = t5.position_bias(rel, l, l, cfg)[0]
+    kernels["I"] = dict(
+        name="short_t5", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/short_t5.cu",
+        replaces="knn_for_homology_tpu/ops/short_attention.py:37",
+        **attention_case("I", 13, l, [512 - 29 * i for i in range(13)],
+                         short_cuda.short_attention_t5, short_attention_plain,
+                         bias, bias),
+    )
+    for key, shape in (("H", "B=2, H=32, L=3200, dk=128"),
+                       ("I", "B=13, H=32, L=512, dk=128")):
+        kv = kernels[key]
+        log(f"phase 3 kernel {key} {kv['name']} [{shape}]: max_abs_err"
+            f" {kv['max_abs_err']:.3g}, {kv['ms']:.3f} ms vs plain"
+            f" {kv['plain_ms']:.3f} ms, sdpa {kv['library_ms']:.3f} ms, bound"
+            f" {kv['bound_ms']:.3f} ms ({kv['bound_by']})")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The encoder's kernel wrappers swapped for their plain versions, so
+    that the same path runs on the card through them (models/t5.py looks
+    the wrappers up at each call)."""
+    from knn_for_homology_tpu_torch.ops import ffn_cuda, flash_cuda, short_cuda
+    from knn_for_homology_tpu_torch.ops.ffn import fused_ffn_plain
+    from knn_for_homology_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+    )
+    from knn_for_homology_tpu_torch.ops.short_attention import (
+        short_attention_plain,
+    )
+
+    swaps = [(ffn_cuda, "fused_ffn_t5", fused_ffn_plain),
+             (flash_cuda, "flash_attention_t5", flash_attention_plain),
+             (short_cuda, "short_attention_t5", short_attention_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    try:
+        for mod, name, plain in swaps:
+            setattr(mod, name, plain)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def device_time_shares(prof):
+    """One profiled window's device time: {group: (ms, share)} with the
+    encoder's kernels by name, cuBLAS products and the rest, and the three
+    largest kernels of the rest as [(name, ms)]."""
+    from torch.autograd import DeviceType
+
+    groups, rest = {}, []
+    for ev in prof.key_averages():
+        # device events only: an operator's row repeats its kernels' time
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        if ms <= 0:
+            continue
+        name = ev.key.lower()
+        group = ("G ffn_fused" if "ffn_fused" in name
+                 else "H flash_t5" if "flash_t5" in name
+                 else "I short_t5" if "short_t5" in name
+                 else "cuBLAS products" if any(
+                     w in name for w in ("gemm", "cutlass", "xmma", "sm90_",
+                                         "nvjet"))
+                 else "rest")
+        groups[group] = groups.get(group, 0.0) + ms
+        if group == "rest":
+            rest.append((ev.key[:60], ms))
+    total = sum(groups.values())
+    assert total > 0, "the profiler saw no device time"
+    top = sorted(rest, key=lambda r: -r[1])[:3]
+    return {g: (ms, ms / total) for g, ms in sorted(groups.items())}, top
+
+
+def check_pooled(name, got, want):
+    """Per-protein cosine and relative L2 error of two routes' pooled
+    vectors, held to ENC_MIN_COSINE and ENC_MAX_REL_ERR."""
+    cos = np.sum(got * want, 1) / (np.linalg.norm(got, axis=1)
+                                   * np.linalg.norm(want, axis=1))
+    rel = np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
+    assert cos.min() >= ENC_MIN_COSINE and rel.max() <= ENC_MAX_REL_ERR, (
+        name, float(cos.min()), float(rel.max()))
+    return float(cos.min()), rel
+
+
+def run_encoder(kernels, seed):
+    """Phase 8: sequences → ProtT5-XL (24 layers, bf16, random weights from
+    torch.Generator("cuda")) → mean-pool → l2 → FlatIndex k = 13, counts
+    from zero; then the opt-in short route, a profile of one warm batch,
+    and kernels against plain versions on 32 of the proteins."""
+    import torch
+
+    from knn_for_homology_tpu_torch.models import t5
+    from knn_for_homology_tpu_torch.models.batching import make_batches
+    from knn_for_homology_tpu_torch.models.registry import ProtT5Embedder
+    from knn_for_homology_tpu_torch.ops import (
+        ffn_cuda,
+        flash_cuda,
+        flat_cuda,
+        short_cuda,
+    )
+    from knn_for_homology_tpu_torch.ops.distance import l2_normalize
+    from knn_for_homology_tpu_torch.search.flat import FlatIndex
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="knn_enc_") as tmp:
+        _, _, train_seqs, test_seqs = write_dataset(
+            Path(tmp), seed + 2, n_fam=ENC_FAMILIES, per_train=ENC_TRAIN, dim=8
+        )
+    rng = np.random.RandomState(seed + 3)
+    long_seqs = [AAS[rng.randint(0, 20, n)].tobytes().decode()
+                 for n in LONG_LENGTHS]
+    seqs = train_seqs + test_seqs + long_seqs
+    n_train = len(train_seqs)
+
+    t0 = time.perf_counter()
+    config = t5.PROTT5_XL
+    params = t5.init_params(config, seed=seed, device=dev)
+    embedder = ProtT5Embedder(config=config, params=params,
+                              token_budget=TOKEN_BUDGET, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in embedder.encoder.parameters())
+    batches = make_batches(seqs, TOKEN_BUDGET, embedder.max_len)
+    residues = sum(min(len(s), embedder.max_len) for s in seqs)
+    tokens = sum(len(b.sequences) * b.padded_len for b in batches)
+
+    # the path, counts from zero
+    wrappers = {"G": ffn_cuda.fused_ffn_t5, "H": flash_cuda.flash_attention_t5,
+                "I": short_cuda.short_attention_t5,
+                "A": flat_cuda.flat_topk_kernel}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pooled = embedder.embed_pooled(seqs)
+    embed_s = time.perf_counter() - t0
+    vecs = l2_normalize(torch.from_numpy(pooled).to(dev)).cpu().numpy()
+    index = FlatIndex(metric="ip", device=dev).add(vecs[:n_train])
+    sims, ids = index.search(vecs[n_train:n_train + len(test_seqs)], HITS)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {key: fn.launches for key, fn in wrappers.items()}
+    for key in ("G", "H", "A"):
+        assert launches[key] > 0, f"kernel {key} was not launched by phase 8"
+    assert launches["I"] == 0, "the short kernel is opt-in"
+    kernels["G"]["launches"], kernels["H"]["launches"] = (
+        launches["G"], launches["H"])
+    assert pooled.shape == (len(seqs), config.d_model)
+    assert np.isfinite(pooled).all() and np.isfinite(sims).all()
+    # same-family share of the top-13 (family f holds rows f*31 .. f*31+30)
+    family_hits = float(np.mean(ids // ENC_TRAIN == np.arange(len(test_seqs))[:, None]))
+    log(f"phase 8 encoder path: ProtT5-XL {config.num_layers} layers,"
+        f" {n_params / 1e9:.3f} B parameters (init {init_s:.2f} s) |"
+        f" {len(seqs)} proteins, {residues} residues, {len(batches)} batches,"
+        f" {tokens} padded tokens | embed {embed_s:.3f} s ({residues / embed_s:.0f}"
+        f" residues/s), embed + search {wall:.3f} s | peak {peak / 2**30:.2f} GiB"
+        f" | top-{HITS} same-family share {family_hits:.4f} | launches {launches}")
+
+    # the opt-in short route: kernel I
+    short_seqs = [s for s in train_seqs if len(s) < 512][:64]
+    short_embedder = ProtT5Embedder(
+        config=dataclasses.replace(config, use_short_kernel=True),
+        params=params, token_budget=TOKEN_BUDGET, device=dev,
+    )
+    wrappers["I"].launches = 0
+    pooled_short = short_embedder.embed_pooled(short_seqs)
+    kernels["I"]["launches"] = wrappers["I"].launches
+    assert kernels["I"]["launches"] > 0, "kernel I was not launched"
+    rows = [seqs.index(s) for s in short_seqs]
+    cos, rel = check_pooled("short route", pooled_short, pooled[rows])
+    log(f"phase 8 short route: {len(short_seqs)} proteins, kernel I launches"
+        f" {kernels['I']['launches']}, pooled vs the dense route: cosine min"
+        f" {cos:.6f}, relative L2 error max {rel.max():.4g}")
+
+    # warm batches under the profiler, device time by kernel: the median
+    # batch (dense attention) and the longest (flash)
+    by_len = sorted(batches, key=lambda b: b.padded_len)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for batch in (by_len[len(by_len) // 2], by_len[-1]):
+        embedder.pooled_batch(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            embedder.pooled_batch(batch)
+            torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        shares, top = device_time_shares(prof)
+        log(f"phase 8 profile, one warm batch of {len(batch.sequences)} x"
+            f" {batch.padded_len} (wall {batch_s * 1e3:.1f} ms under the"
+            " profiler): " + ", ".join(f"{g} {ms:.1f} ms ({share:.3f})"
+                                       for g, (ms, share) in shares.items())
+            + " | largest of the rest: "
+            + ", ".join(f"{n} {ms:.1f} ms" for n, ms in top))
+
+    # kernels against plain versions on 32 proteins, one of them long
+    subset = test_seqs[:31] + [long_seqs[2]]
+    got = embedder.embed_pooled(subset)
+    with plain_kernels():
+        want = embedder.embed_pooled(subset)
+    cos, rel_err = check_pooled("kernels vs plain", got, want)
+    qg = l2_normalize(torch.from_numpy(got[:31]).to(dev)).cpu().numpy()
+    qw = l2_normalize(torch.from_numpy(want[:31]).to(dev)).cpu().numpy()
+    db = vecs[:n_train]
+    sims_g, sims_w = qg @ db.T, qw @ db.T
+    _, ids_g = index.search(qg, HITS)
+    _, ids_w = index.search(qw, HITS)
+    tie = 2 * float(np.abs(sims_g - sims_w).max())
+    rows_, cols_ = np.nonzero(ids_g != ids_w)
+    for r, c in zip(rows_, cols_):
+        gap = abs(sims_w[r, ids_g[r, c]] - sims_w[r, ids_w[r, c]])
+        assert gap <= tie, f"phase 8: id swap at ({r}, {c}) with gap {gap} > {tie}"
+    log(f"phase 8 kernels vs plain on {len(subset)} proteins: pooled cosine"
+        f" min {cos:.6f}, relative L2 error max {rel_err.max():.4g}"
+        f" (long one {rel_err[-1]:.4g}); top-{HITS} ids differ in"
+        f" {rows_.size} of {ids_g.size} slots, all near-ties within {tie:.3g}")
 
 
 def main() -> None:
@@ -390,7 +780,9 @@ def main() -> None:
             name="flat_topk", route="cuda",
             source="knn_for_homology_tpu_torch/csrc/flat_topk.cu",
             replaces="knn_for_homology_tpu/ops/flat_pallas.py:51",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            **bound(2 * q.shape[0] * N_TRAIN * DIM, "fp32",
+                    tensor_bytes(db, q, *got)),
         )
         log(f"phase 3 kernel A flat_topk [1024 x {N_TRAIN} x {DIM}, k={HITS}]:"
             f" max_abs_err {err:.3g}, {swaps} near-tie swaps, {ms:.3f} ms"
@@ -416,6 +808,9 @@ def main() -> None:
             source="knn_for_homology_tpu_torch/csrc/segment_topr.cu",
             replaces="knn_for_homology_tpu/ops/exact_pallas.py:126",
             max_abs_err=max(err, err_r), ms=ms, plain_ms=plain_ms,
+            library_ms=None,
+            **bound(2 * q.shape[0] * N_TRAIN * DIM, "fp32",
+                    tensor_bytes(db, q, *bufs)),
         )
         log(f"phase 3 kernel B segment_topr [512 x {N_TRAIN} x {DIM}, k=1000,"
             f" W={w}, R={r}]: max_abs_err {err:.3g}, {swaps} swaps,"
@@ -446,7 +841,7 @@ def main() -> None:
         )
         assert ragged, "the workload must plan a ragged block"
         picked = classic[:3] + ragged[:1]
-        c_err, c_ms, c_plain_ms = 0.0, 0.0, 0.0
+        c_err, c_ms, c_plain_ms, c_ops, c_bytes = 0.0, 0.0, 0.0, 0, 0
         for lq_b, lt_b, s_b, sweep, g_pad, block in picked:
             qc = np.full((g_pad, lq_b), -1, np.int32)
             tc = np.full((g_pad, 128, lt_b), -1, np.int32)
@@ -478,6 +873,8 @@ def main() -> None:
                 lambda: align_cuda.sw_scores_grouped_plain(qd, td, **kw), reps=1
             )
             c_ms, c_plain_ms = c_ms + ms, c_plain_ms + plain_ms
+            c_ops += SW_OPS_PER_CELL * g_pad * 128 * lq_b * lt_b
+            c_bytes += tensor_bytes(qd, td, k_out)
             log(f"phase 3 kernel C sw_grouped block G={g_pad} Lq={lq_b}"
                 f" K=128 Lt={lt_b} S={s_b}: bit-equal (both conventions),"
                 f" {ms:.3f} ms vs plain {plain_ms:.3f} ms")
@@ -485,8 +882,11 @@ def main() -> None:
             name="sw_grouped", route="cuda",
             source="knn_for_homology_tpu_torch/csrc/sw_grouped.cu",
             replaces="knn_for_homology_tpu/ops/align_pallas.py:179",
-            max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
+            max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, library_ms=None,
+            **bound(c_ops, "fp32", c_bytes),
         )
+
+        check_encoder_kernels(kernels, args.seed)
 
         # ---- phase 4: the main path, counts from zero
         flat_cuda.flat_topk_kernel.launches = 0
@@ -582,8 +982,11 @@ def main() -> None:
     # ---- phase 7: the headline bench
     run_bench(kernels)
 
+    # ---- phase 8: the encoder path
+    run_encoder(kernels, args.seed)
+
     log(card)
-    print(json.dumps({"kernels": [kernels[k] for k in "ABCDEF"]}))
+    print(json.dumps({"kernels": [kernels[k] for k in "ABCDEFGHI"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

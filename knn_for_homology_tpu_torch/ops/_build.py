@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argument types (every one returns cudaError_t)
 SIGNATURES = {
     # q, db, vals, ids, part_vals, part_ids, q_n, n, d, k, splits, l2, stream
@@ -42,6 +43,12 @@ SIGNATURES = {
     # q, t_jk, blosum, state, out, g, lq, lt, k, segments, gap_first,
     # gap_ext, stream
     "knn_sw_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, ln, wi, wo, out, t, d, f, eps, stream
+    "knn_ffn_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # q, k, v, mask, table, out, b, h, l, stream
+    "knn_flash_t5": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, mask, bias, out, b, h, l, stream
+    "knn_short_t5": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _LIB = {}  # digest -> loaded CDLL (one per process)
