@@ -34,12 +34,23 @@ d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
      for the flash route) in 7000-token batches, then l2 and a FlatIndex
      k = 13 search, launch counts reset just before (G, H, A); an opt-in
      short-attention run (I); device time by kernel over warm batches;
-     the kernels' route against the plain versions' on 32 proteins.
+     the kernels' route against the plain versions' on 32 proteins;
+  9. the IVF index path (pipelines.pfam_proteins.run, the full-protein
+     all-vs-all k = 1000 search) over phase 4's 131072 x 1024 vectors as
+     full-protein embeddings, one domain (the family) per protein: the IVF
+     index (kernel J, the union scan with sym2) and the flat index (kernel
+     B), launch counts reset just before; an online batch of 256 queries
+     at k = 10 through the per-probe path (kernel K) against the flat
+     exact top-10; one 4096-query block through the kernels' route and the
+     plain versions' route (ids equal); a write_index / read_index round
+     trip on the card.
 
 Phase 3 also holds the encoder's kernels at full width: G at 7000 tokens x
 1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128,
 with scaled_dot_product_attention timed beside H and I as the library
-yardstick. Every kernel's line carries its bound: the least time the card
+yardstick; and the IVF path's kernels: J at 1024 queries x 256 cells
+(32768 rows) x 1024, k = 1000 (sym and sym2, buffers bit-equal), K at 4096
+queries x 32 probes x 128 x 1024. Every kernel's line carries its bound: the least time the card
 could take, from its operations and bytes (PEAK_OPS, HBM_BYTES_PER_S).
 
 Any failure raises, so the script exits non-zero without the result line.
@@ -102,6 +113,24 @@ TOKEN_BUDGET = 7000
 # to BF16_TOL in phase 3)
 ENC_MIN_COSINE = 0.98
 ENC_MAX_REL_ERR = 0.2
+# phase 3, kernels J and K at the IVF path's shapes: the phase-9 index's
+# 2048 cells of 64 members (the auto sizing, half full); J scans 256 of
+# them for 1024 queries at k = 1000, K expands 32 probes for 4096 queries
+IVF_CELLS, IVF_FILL = 2048, 64
+J_QUERIES, J_BUDGET = 1024, 256
+K_QUERIES, K_PROBES = 4096, 32
+K_RTOL = 1e-5  # K's fp32 sums of 1024 products, in another order than plain
+# phase 9: IVFIndex(cosine, nprobe=32) at k = 1000, the pipeline's own;
+# AUC1 may fall at most this far below the flat index's; the online batch
+# (per-probe path) must recall this share of the flat exact top-10
+IVF_AUC1_SLACK = 0.01
+ONLINE_QUERIES, ONLINE_K, ONLINE_RECALL = 256, 10, 0.99
+ROUNDTRIP_ROWS = 16384
+# phase 9 profile groups: kernel J (the union scan), the sorts and top-k
+# selections (routing, cell ranking, the packed decode)
+IVF_KERNELS = (("J ivf_indirect", ("segment_packed",)),
+               ("sort / top-k", ("sort", "topk", "radix", "bitonic",
+                                 "gathertopk")))
 
 
 def log(msg):
@@ -523,6 +552,270 @@ def check_encoder_kernels(kernels, seed):
             f" {kv['bound_ms']:.3f} ms ({kv['bound_by']})")
 
 
+def check_ivf_kernels(db, q_all, kernels, seed):
+    """Phase 3 for kernels J and K on a slab table of the phase-9 layout
+    (IVF_CELLS cells of IVF_FILL members of db, packed as the index packs
+    them): J's buffers bit-equal to plain (sym and sym2), K's ids equal and
+    sims within K_RTOL. No one PyTorch call computes either function (J's
+    per-lane packed top-R over an indirect row set; K's gather, dot, scale
+    and -inf padding), so neither has a library time."""
+    import torch
+
+    from knn_for_homology_tpu_torch.ops import ivf_cuda, packed_cuda, slab_cuda
+
+    dev = db.device
+    gen = torch.Generator(dev).manual_seed(seed + 11)
+    members = torch.full((IVF_CELLS, 128), -1, dtype=torch.int32, device=dev)
+    members[:, :IVF_FILL] = torch.randperm(
+        IVF_CELLS * IVF_FILL, generator=gen, device=dev
+    ).view(IVF_CELLS, IVF_FILL).to(torch.int32)
+    pv, pi, sc = slab_cuda.pack_neighbours(db, members, 128)
+
+    # J: 1024 queries against 256 cells' slabs, k = 1000
+    cells = torch.randperm(IVF_CELLS, generator=gen, device=dev)[:J_BUDGET]
+    cells = cells.to(torch.int32)
+    tile, r, _ = ivf_cuda.union_plan(J_BUDGET, BENCH_K, 0.995)
+    # queries zero-padded to the slabs' lane-padded width, as the index does
+    q = torch.nn.functional.pad(q_all[:J_QUERIES], (0, pv.shape[1] - db.shape[1]))
+    kern = ivf_cuda.segment_packed_indirect_kernel
+    plain = ivf_cuda.segment_packed_indirect_plain
+    times = {}
+    for compute in ("sym", "sym2"):
+        q8, q_lo, _ = packed_cuda.quantize_queries(q, compute == "sym2")
+        args = (q8, pv, sc, pi, cells, tile, r, q_lo)
+        got, want = kern(*args), plain(*args)
+        assert torch.equal(got, want), (
+            f"J {compute}: {int((got != want).sum())} slots differ from plain")
+        times[compute] = (cuda_ms(lambda: kern(*args)),
+                          cuda_ms(lambda: plain(*args)))
+        if compute == "sym":
+            rows = J_BUDGET * 128
+            j_bound = bound(2 * J_QUERIES * rows * q.shape[1], "int8",
+                            tensor_bytes(q8, cells, got)
+                            + rows * (q.shape[1] + 8))
+        log(f"phase 3 kernel J ivf_indirect {compute} [{J_QUERIES} x"
+            f" {J_BUDGET} cells ({J_BUDGET * 128} rows) x {q.shape[1]},"
+            f" k={BENCH_K}, W={tile}, R={r}]: buffers bit-equal,"
+            f" {times[compute][0]:.3f} ms vs plain {times[compute][1]:.3f} ms")
+    ms, plain_ms = times["sym"]
+    kernels["J"] = dict(
+        name="ivf_indirect", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
+        replaces="knn_for_homology_tpu/ops/ivf_pallas.py:55",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **j_bound,
+    )
+
+    # K: 4096 queries x 32 probes of 128 rows
+    sel = torch.randint(0, IVF_CELLS, (K_QUERIES, K_PROBES), generator=gen,
+                        device=dev, dtype=torch.int32)
+    qk = q_all[:K_QUERIES].contiguous()
+    args = (sel, qk, pv, pi, sc, 128)
+    got_s, got_n = slab_cuda.beam_expand(*args)
+    want_s, want_n = slab_cuda.beam_expand_plain(*args)
+    assert torch.equal(got_n, want_n), "K: ids differ from plain"
+    fin = torch.isfinite(want_s)
+    assert torch.equal(fin, torch.isfinite(got_s)), "K: -inf lanes differ"
+    err = float((got_s[fin] - want_s[fin]).abs().max())
+    scale = float(want_s[fin].abs().max())
+    assert err <= K_RTOL * scale, f"K: max_abs_err {err} > {K_RTOL} x {scale}"
+    ms = cuda_ms(lambda: slab_cuda.beam_expand(*args))
+    plain_ms = cuda_ms(lambda: slab_cuda.beam_expand_plain(*args))
+    # bytes: the queries and probe lists, each slab probed (with its ids and
+    # scales) once, the outputs once; operations: an fp32 dot per lane
+    touched = int(torch.unique(sel).numel())
+    d = qk.shape[1]
+    kernels["K"] = dict(
+        name="slab_expand", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/slab_expand.cu",
+        replaces="knn_for_homology_tpu/ops/graph_pallas.py:139",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(2 * K_QUERIES * K_PROBES * 128 * d, "fp32",
+                tensor_bytes(sel, qk, got_s, got_n)
+                + touched * 128 * (d + 8)),
+    )
+    log(f"phase 3 kernel K slab_expand [{K_QUERIES} x {K_PROBES} probes x 128"
+        f" x {d}]: ids equal, max_abs_err {err:.3g}, {ms:.3f} ms vs plain"
+        f" {plain_ms:.3f} ms, bound {kernels['K']['bound_ms']:.3f} ms"
+        f" ({kernels['K']['bound_by']})")
+
+
+@contextlib.contextmanager
+def plain_ivf_kernels():
+    """Kernels J and K swapped for their plain versions (search/ivf.py and
+    ops/ivf_cuda.py look them up at each call)."""
+    from knn_for_homology_tpu_torch.ops import ivf_cuda, slab_cuda
+
+    swaps = [(ivf_cuda, "segment_packed_indirect_kernel",
+              ivf_cuda.segment_packed_indirect_plain),
+             (slab_cuda, "beam_expand", slab_cuda.beam_expand_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    try:
+        for mod, name, plain in swaps:
+            setattr(mod, name, plain)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def recall_of(got, want):
+    """Mean share of each row of `want` found in the same row of `got`."""
+    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / len(b)
+                          for a, b in zip(got, want)]))
+
+
+def run_ivf_path(train, test, kernels):
+    """Phase 9: the IVF index path at full width, counts from zero. The
+    phase-4 vectors are the proteins (one domain each, its family), the
+    pipeline searches all of them against all at k = 1000 with the IVF
+    index and the flat index; then the online batch (per-probe path). The
+    kernel-vs-plain block and the round trip run after the counts are
+    read."""
+    import torch
+
+    from knn_for_homology_tpu_torch.data.pfam import get_homologous_proteins
+    from knn_for_homology_tpu_torch.eval import analysis
+    from knn_for_homology_tpu_torch.ops import (
+        exact_cuda,
+        flat_cuda,
+        ivf_cuda,
+        packed_cuda,
+        slab_cuda,
+    )
+    from knn_for_homology_tpu_torch.pipelines import pfam_proteins
+    from knn_for_homology_tpu_torch.search.flat import FlatIndex
+    from knn_for_homology_tpu_torch.search.io import read_index, write_index
+    from knn_for_homology_tpu_torch.search.ivf import IVFIndex
+
+    n = train.shape[0]
+    ids = [f"fam{i // FAMILY_TRAIN}_train{i % FAMILY_TRAIN}" for i in range(n)]
+    p2d = {p: [(f"F{i // FAMILY_TRAIN}", (0, 100))] for i, p in enumerate(ids)}
+    counters = {
+        "J": (ivf_cuda, "segment_packed_indirect_kernel"),
+        "K": (slab_cuda, "beam_expand"),
+        "A": (flat_cuda, "flat_topk_kernel"),
+        "B": (exact_cuda, "segment_topr_kernel"),
+    }
+    with tempfile.TemporaryDirectory(prefix="knn_ivf_") as tmp:
+        npy = Path(tmp) / "full_sequences.npy"
+        np.save(npy, train)
+        for mod, name in counters.values():
+            getattr(mod, name).launches = 0
+        for key in packed_cuda.segment_packed_kernel.launches:
+            packed_cuda.segment_packed_kernel.launches[key] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, walls = {}, {}
+        for mode in ("ivf", "flat"):
+            t0 = time.perf_counter()
+            metrics[mode] = pfam_proteins.run(npy, ids, p2d, index_mode=mode,
+                                              k=BENCH_K, device="cuda")
+            walls[mode] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+
+    # the online batch: below UNION_MIN_Q, the per-probe path
+    t0 = time.perf_counter()
+    index = IVFIndex(metric="cosine", nprobe=32, device="cuda").add(train)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    online = test[:ONLINE_QUERIES]
+    assert ONLINE_QUERIES < index.UNION_MIN_Q
+    t0 = time.perf_counter()
+    _, o_ids = index.search(online, ONLINE_K)
+    online_s = time.perf_counter() - t0
+    _, exact_ids = FlatIndex(device="cuda").add(train).search(online, ONLINE_K)
+    online_recall = recall_of(o_ids, exact_ids)
+    launches = {key: getattr(mod, name).launches
+                for key, (mod, name) in counters.items()}
+    launches.update(packed_cuda.segment_packed_kernel.launches)
+    for key in ("J", "K", "B"):
+        assert launches[key] > 0, f"kernel {key} was not launched by phase 9"
+    kernels["J"]["launches"], kernels["K"]["launches"] = (launches["J"],
+                                                          launches["K"])
+
+    for mode, m in metrics.items():
+        assert math.isfinite(m["auc1"]) and 0 < m["auc1"] <= 1, (mode, m)
+        log(f"phase 9 pfam_proteins {mode}: {n} proteins all-vs-all,"
+            f" k={BENCH_K} | build {m['build_seconds']:.3f} s, search"
+            f" {m['search_seconds']:.3f} s ({n / m['search_seconds']:.0f}"
+            f" queries/s), run {walls[mode]:.1f} s | AUC1 {m['auc1']:.4f},"
+            f" recall@300 {m['recall@300']:.4f}")
+    assert metrics["ivf"]["auc1"] >= metrics["flat"]["auc1"] - IVF_AUC1_SLACK, (
+        metrics["ivf"]["auc1"], metrics["flat"]["auc1"])
+    assert online_recall >= ONLINE_RECALL, f"online recall {online_recall}"
+    log(f"phase 9 peak {peak / 2**30:.2f} GiB | online batch: build"
+        f" {build_s:.3f} s, {ONLINE_QUERIES} queries at k={ONLINE_K} in"
+        f" {online_s * 1e3:.1f} ms (per-probe path), recall {online_recall:.4f}"
+        f" against the flat exact top-{ONLINE_K} | launches {launches}")
+
+    # where the IVF all-vs-all search's time goes: device time by kernel
+    # over the whole search, then the pipeline's host steps on its hits
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        sims_dev, hits_dev = index.search_device(train, BENCH_K + 1)
+        torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    shares, top = device_time_shares(prof, IVF_KERNELS)
+    device_ms = sum(ms for ms, _ in shares.values())
+    t0 = time.perf_counter()
+    sims, hits = sims_dev.cpu().numpy(), hits_dev.cpu().numpy()
+    steps = {"D2H": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    hits, _, _ = analysis.remove_self_hit_lossy(hits, sims, np.arange(n))
+    steps["self-hit repair"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    homologous = get_homologous_proteins(p2d)
+    steps["homologs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pfam_proteins.evaluate_protein_hits(hits, ids, homologous)
+    steps["AUC1 / recall"] = time.perf_counter() - t0
+    log(f"phase 9 profile of the IVF all-vs-all search (wall"
+        f" {search_s * 1e3:.1f} ms under the profiler, device busy"
+        f" {device_ms / (search_s * 1e3):.3f}): "
+        + ", ".join(f"{g} {ms:.1f} ms ({share:.3f})"
+                    for g, (ms, share) in shares.items())
+        + " | largest of the rest: " + ", ".join(f"{nm} {ms:.1f} ms"
+                                                 for nm, ms in top)
+        + " | host steps: " + ", ".join(f"{k} {v:.3f} s"
+                                        for k, v in steps.items()))
+    del sims_dev, hits_dev, sims, hits, homologous
+
+    # one full block through the kernels' route and the plain versions'
+    block = train[:index.QUERY_BLOCK]
+    got = index.search(block, BENCH_K)
+    with plain_ivf_kernels():
+        want = index.search(block, BENCH_K)
+    assert np.array_equal(got[1], want[1]), (
+        f"phase 9: {int((got[1] != want[1]).sum())} ids differ between the"
+        " kernels' and the plain versions' routes")
+    assert np.array_equal(got[0], want[0])
+    _, got_k = index.search(online, ONLINE_K)
+    with plain_ivf_kernels():
+        _, want_k = index.search(online, ONLINE_K)
+    assert np.array_equal(got_k, want_k), "phase 9: per-probe routes differ"
+
+    # write_index / read_index on the card, an index of ROUNDTRIP_ROWS rows
+    small = IVFIndex(metric="cosine", nprobe=32, device="cuda").add(
+        train[:ROUNDTRIP_ROWS])
+    before = small.search(online, ONLINE_K)
+    with tempfile.TemporaryDirectory(prefix="knn_ivf_io_") as tmp:
+        t0 = time.perf_counter()
+        write_index(small, Path(tmp) / "ivf.index")
+        loaded = read_index(Path(tmp) / "ivf.index", device="cuda")
+        io_s = time.perf_counter() - t0
+    after = loaded.search(online, ONLINE_K)
+    assert isinstance(loaded, IVFIndex)
+    assert np.array_equal(before[1], after[1]) and np.array_equal(
+        before[0], after[0]), "phase 9: the round trip changed the results"
+    log(f"phase 9 kernels vs plain: a {index.QUERY_BLOCK}-query block at"
+        f" k={BENCH_K} (union scan) and the online batch (per-probe) give"
+        f" equal ids and scores | round trip of a {ROUNDTRIP_ROWS}-row index"
+        f" in {io_s:.2f} s: same ids")
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """The encoder's kernel wrappers swapped for their plain versions, so
@@ -550,12 +843,19 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
-def device_time_shares(prof):
+ENCODER_KERNELS = (("G ffn_fused", ("ffn_fused",)),
+                   ("H flash_t5", ("flash_t5",)),
+                   ("I short_t5", ("short_t5",)))
+
+
+def device_time_shares(prof, named=ENCODER_KERNELS):
     """One profiled window's device time: {group: (ms, share)} with the
-    encoder's kernels by name, cuBLAS products and the rest, and the three
-    largest kernels of the rest as [(name, ms)]."""
+    `named` groups [(label, name substrings)], cuBLAS products and the rest,
+    and the three largest kernels of the rest as [(name, ms)]."""
     from torch.autograd import DeviceType
 
+    named = named + (("cuBLAS products",
+                      ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),)
     groups, rest = {}, []
     for ev in prof.key_averages():
         # device events only: an operator's row repeats its kernels' time
@@ -565,13 +865,8 @@ def device_time_shares(prof):
         if ms <= 0:
             continue
         name = ev.key.lower()
-        group = ("G ffn_fused" if "ffn_fused" in name
-                 else "H flash_t5" if "flash_t5" in name
-                 else "I short_t5" if "short_t5" in name
-                 else "cuBLAS products" if any(
-                     w in name for w in ("gemm", "cutlass", "xmma", "sm90_",
-                                         "nvjet"))
-                 else "rest")
+        group = next((label for label, words in named
+                      if any(w in name for w in words)), "rest")
         groups[group] = groups.get(group, 0.0) + ms
         if group == "rest":
             rest.append((ev.key[:60], ms))
@@ -887,6 +1182,7 @@ def main() -> None:
         )
 
         check_encoder_kernels(kernels, args.seed)
+        check_ivf_kernels(db, q_all, kernels, args.seed)
 
         # ---- phase 4: the main path, counts from zero
         flat_cuda.flat_topk_kernel.launches = 0
@@ -985,8 +1281,13 @@ def main() -> None:
     # ---- phase 8: the encoder path
     run_encoder(kernels, args.seed)
 
+    # ---- phase 9: the IVF index path, on phase 4's vectors
+    del db, q_all, index, plain
+    torch.cuda.empty_cache()
+    run_ivf_path(train, test, kernels)
+
     log(card)
-    print(json.dumps({"kernels": [kernels[k] for k in "ABCDEFGHI"]}))
+    print(json.dumps({"kernels": [kernels[k] for k in "ABCDEFGHIJK"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

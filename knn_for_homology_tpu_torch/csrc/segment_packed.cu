@@ -1,4 +1,4 @@
-// Kernels D, E, F: packed segment-top-R candidates for approx top-k.
+// Kernels D, E, F, J: packed segment-top-R candidates for approx top-k.
 //
 // Replace, in knn_for_homology_tpu/ops/exact_pallas.py (entries
 // _packed_candidates_topk and _packed_candidates_topk_sq8, before their
@@ -21,9 +21,24 @@
 // >= n never enter. Packed values are unique within a lane (distinct pass
 // bits), so the insert needs no tie rule.
 //
-// F is bit-exact: |dot| <= d * 127^2 < 2^24 for d <= 1024, so int32 -> f32
-// is exact, and lo * (1/128) is exact, so an FMA contraction of the combine
-// cannot change it.
+// J replaces knn_for_homology_tpu/ops/ivf_pallas.py:_indirect_sq8sym_kernel
+// (entry _indirect_candidates, from ivf_union_topk): F over the IVF union
+// without gathering it. Its database is virtual: column c is row c % 128 of
+// cell cells[c / 128] of the packed slab table pv [C*128, d], and a column
+// whose packed id is -1 (capacity padding) never enters. J is F's kernel
+// with a row table (the template flag kInd): each pass first looks up its
+// BN columns' physical rows, scales and validity in shared memory, then
+// scores and inserts exactly as F does, so the two cannot drift. The TPU
+// kernel scored a query block against e*128 = 1024 lanes per step and kept
+// R*1024 slots per query in VMEM (~16 KB at k = 1000); here a block owns BN
+// = 64 of those lanes for BM = 32 queries, as in F, so its slot state is
+// BM*BN*R*4 bytes (32 KB at R = 4) whatever the tile width, and the width
+// only sets gridDim.y.
+//
+// F and J are bit-exact: |dot| <= d * 127^2 < 2^24 for d <= 1024, so int32
+// -> f32 is exact, and lo * (1/128) is exact; the combine
+// (hi + lo * (1/128)) * sc is written with _rn intrinsics, so no FMA
+// contraction can reorder it.
 //
 // What bounds it here: the product (FFMA for D and E, 2*Q*N*d flops;
 // __dp4a for F, 4 int8 MACs per instruction), since the [Q, N] similarity
@@ -64,7 +79,33 @@ struct Params {
   int* buf;
   int q_n, n, d, w, r, jbits;
   bool l2, global_slots;
+  // J only: cell slot -> cell id [n / 128], and the packed ids [C*128]
+  const int* cells;
+  const int* ids;
 };
+
+// Row of the database behind column m of a tile (-1: none, reads as zero).
+// F: column b0 + m is row b0 + m, up to n.
+struct DirectRows {
+  int b0, n;
+  __device__ __forceinline__ int operator()(int m) const {
+    return b0 + m < n ? b0 + m : -1;
+  }
+};
+// J: the pass's row table in shared memory.
+struct TableRows {
+  const int* row;
+  __device__ __forceinline__ int operator()(int m) const { return row[m]; }
+};
+
+// F's and J's similarity: (hi + lo / 128) * sc in this order, each step
+// rounded on its own.
+template <bool kTwo>
+__device__ __forceinline__ float sym_sim(int hi, int lo, float sc) {
+  float v = (float)hi;
+  if (kTwo) v = __fadd_rn(v, __fmul_rn((float)lo, 1.f / 128.f));
+  return __fmul_rn(v, sc);
+}
 
 template <int TM, int TN>
 struct I8Smem {
@@ -75,12 +116,12 @@ struct I8Smem {
   int b[kBKW][BN + 4];
 };
 
-// acc[i][j] = int8 dot(Q[a0 + ty*TM + i], B[b0 + tx*TN + j]) over dw words
+// acc[i][j] = int8 dot(Q[a0 + ty*TM + i], B[rows(tx*TN + j)]) over dw words
 // of 4 packed int8 columns each (acc_lo the same for Qlo when kTwo).
-template <int TM, int TN, bool kTwo>
+template <int TM, int TN, bool kTwo, typename Rows>
 __device__ __forceinline__ void tile_dots_i8(
     const int* __restrict__ Q, const int* __restrict__ Qlo, int a_rows,
-    int a0, const int* __restrict__ B, int b_rows, int b0, int dw,
+    int a0, const int* __restrict__ B, Rows rows, int dw,
     I8Smem<TM, TN>& s, int (&acc)[TM][TN], int (&acc_lo)[TM][TN]) {
   constexpr int BM = I8Smem<TM, TN>::BM;
   constexpr int BN = I8Smem<TM, TN>::BN;
@@ -102,8 +143,8 @@ __device__ __forceinline__ void tile_dots_i8(
     }
     for (int e = tid; e < BN * kBKW; e += knn::kThreads) {
       const int m = e / kBKW, kw = e % kBKW;
-      const int row = b0 + m, col = k0 + kw;
-      s.b[kw][m] = (row < b_rows && col < dw) ? B[(size_t)row * dw + col] : 0;
+      const int row = rows(m), col = k0 + kw;
+      s.b[kw][m] = (row >= 0 && col < dw) ? B[(size_t)row * dw + col] : 0;
     }
     __syncthreads();
 #pragma unroll
@@ -132,29 +173,36 @@ template <int TM, int TN, int V>
 using SmemOf = typename std::conditional<(V >= kSym), I8Smem<TM, TN>,
                                          knn::TileSmem<TM, TN>>::type;
 
-// sim[i][j] for the block's queries a0.. against db rows b0.. (the
-// reference kernels' arithmetic, in their order of operations)
-template <int TM, int TN, int V>
+// sim[i][j] for the block's queries a0.. against db columns b0.. (the
+// reference kernels' arithmetic, in their order of operations); J takes
+// its rows and scales from the pass's tables
+template <int TM, int TN, int V, bool kInd>
 __device__ __forceinline__ void tile_sims(const Params& p, int a0, int b0,
                                           SmemOf<TM, TN, V>& s,
+                                          const int* row_tab,
+                                          const float* sc_tab,
                                           float (&sim)[TM][TN]) {
+  static_assert(!kInd || V >= kSym, "J is the sym variants only");
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   if constexpr (V >= kSym) {
     int hi[TM][TN], lo[TM][TN];
-    tile_dots_i8<TM, TN, V == kSym2>(
-        static_cast<const int*>(p.q), static_cast<const int*>(p.q_lo), p.q_n,
-        a0, static_cast<const int*>(p.db), p.n, b0, p.d, s, hi, lo);
+    const int* q = static_cast<const int*>(p.q);
+    const int* q_lo = static_cast<const int*>(p.q_lo);
+    const int* db = static_cast<const int*>(p.db);
+    if constexpr (kInd)
+      tile_dots_i8<TM, TN, V == kSym2>(q, q_lo, p.q_n, a0, db,
+                                       TableRows{row_tab}, p.d, s, hi, lo);
+    else
+      tile_dots_i8<TM, TN, V == kSym2>(q, q_lo, p.q_n, a0, db,
+                                       DirectRows{b0, p.n}, p.d, s, hi, lo);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int col = b0 + tx * TN + j;
-      const float sc = col < p.n ? p.scales[col] : 1.f;
+      const int jl = tx * TN + j, col = b0 + jl;
+      const float sc = kInd ? sc_tab[jl] : col < p.n ? p.scales[col] : 1.f;
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        float v = (float)hi[i][j];
-        if (V == kSym2) v = v + (float)lo[i][j] * (1.f / 128.f);
-        sim[i][j] = v * sc;
-      }
+      for (int i = 0; i < TM; ++i)
+        sim[i][j] = sym_sim<V == kSym2>(hi[i][j], lo[i][j], sc);
     }
   } else {
     float acc[TM][TN];
@@ -212,12 +260,16 @@ __device__ __forceinline__ int insert_slot(Ptr slots, size_t stride, int r,
   return slots[(size_t)(r - 1) * stride];
 }
 
-template <int V>
+template <int V, bool kInd>
 __global__ void __launch_bounds__(knn::kThreads)
 segment_packed(const Params p) {
   constexpr int TM = kTM, TN = kTN, BM = 16 * TM, BN = 16 * TN;
   extern __shared__ int slot_smem[];  // [R][BM][BN] unless global_slots
   __shared__ SmemOf<TM, TN, V> s;
+  // J: the pass's physical rows, scales and validity of its BN columns
+  __shared__ int row_tab[kInd ? BN : 1];
+  __shared__ float sc_tab[kInd ? BN : 1];
+  __shared__ bool ok_tab[kInd ? BN : 1];
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int a0 = blockIdx.x * BM;
@@ -245,8 +297,21 @@ segment_packed(const Params p) {
   const int passes = (p.n + p.w - 1) / p.w;
   for (int pass = 0; pass < passes; ++pass) {
     const int b0 = pass * p.w + lane0;
+    if constexpr (kInd) {
+      __syncthreads();  // every thread is done with the last pass's tables
+      if (tid < BN) {
+        // W is a multiple of 128, so column c is lane c % 128 of cell slot
+        // c / 128
+        const int c = b0 + tid;
+        const int row = p.cells[c >> 7] * 128 + (c & 127);
+        row_tab[tid] = row;
+        sc_tab[tid] = p.scales[row];
+        ok_tab[tid] = p.ids[row] >= 0;
+      }
+      __syncthreads();
+    }
     float sim[TM][TN];
-    tile_sims<TM, TN, V>(p, a0, b0, s, sim);
+    tile_sims<TM, TN, V, kInd>(p, a0, b0, s, row_tab, sc_tab, sim);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int il = ty * TM + i;
@@ -254,7 +319,8 @@ segment_packed(const Params p) {
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int jl = tx * TN + j;
-        if (b0 + jl >= p.n) continue;  // masked columns never enter
+        // masked columns never enter: past n, or J's capacity padding
+        if (kInd ? !ok_tab[jl] : b0 + jl >= p.n) continue;
         const int cand =
             (knn::ordered_int(sim[i][j]) & ~jmax) | (jmax - pass);
         if (cand <= kept_min[i][j]) continue;
@@ -282,12 +348,12 @@ segment_packed(const Params p) {
 
 // The slot route by R: shared memory while a block's slots fit
 // kSlotSmemBytes (R <= 25), else the output buffer in device memory.
-template <int V>
+template <int V, bool kInd = false>
 cudaError_t launch(Params p, cudaStream_t stream) {
   constexpr int BM = 16 * kTM, BN = 16 * kTN;
   p.global_slots = (size_t)BM * BN * p.r * sizeof(int) > kSlotSmemBytes;
   const size_t smem = p.global_slots ? 0 : (size_t)BM * BN * p.r * sizeof(int);
-  auto kernel = segment_packed<V>;
+  auto kernel = segment_packed<V, kInd>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -312,7 +378,7 @@ extern "C" int knn_segment_packed(const void* q, const void* q_lo,
       (sym && (l2 || d % 4 != 0)))
     return (int)cudaErrorInvalidValue;
   Params p{q, q_lo, db, scales, buf, q_n, n, sym ? d / 4 : d, w, r, jbits,
-           l2 != 0, false};
+           l2 != 0, false, nullptr, nullptr};
   switch (variant) {
     case kF32: return (int)launch<kF32>(p, stream);
     case kBF16: return (int)launch<kBF16>(p, stream);
@@ -320,4 +386,24 @@ extern "C" int knn_segment_packed(const void* q, const void* q_lo,
     case kSym: return (int)launch<kSym>(p, stream);
     default: return (int)launch<kSym2>(p, stream);
   }
+}
+
+// Kernel J. pv [C*128, d] int8 slabs, scales and ids [C*128] (per packed
+// row), cells [budget] the cell of each slot; the virtual database has
+// n = budget * 128 columns, W = e * 128 lanes and budget / e passes. Cell
+// ids must lie in [0, C). q (and q_lo when two_level) int8 [q_n, d], d % 4
+// == 0.
+extern "C" int knn_ivf_indirect(const void* q, const void* q_lo,
+                                const void* pv, const float* scales,
+                                const int* ids, const int* cells, int* buf,
+                                int q_n, int budget, int d, int w, int r,
+                                int jbits, int two_level, cudaStream_t stream) {
+  if (w < 128 || w % 128 != 0 || budget < 1 || (budget * 128) % w != 0 ||
+      r < 1 || q_n < 1 || d < 4 || d % 4 != 0 || jbits < 1 || jbits > 30 ||
+      (two_level && q_lo == nullptr) || cells == nullptr || ids == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Params p{q, q_lo, pv, scales, buf, q_n, budget * 128, d / 4, w, r, jbits,
+           false, false, cells, ids};
+  return two_level ? (int)launch<kSym2, true>(p, stream)
+                   : (int)launch<kSym, true>(p, stream);
 }

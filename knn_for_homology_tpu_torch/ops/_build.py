@@ -40,6 +40,13 @@ SIGNATURES = {
     "knn_segment_packed": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
+    # q, q_lo, pv, scales, ids, cells, buf, q_n, budget, d, w, r, jbits,
+    # two_level, stream
+    "knn_ivf_indirect": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    # sel, q, pv, pi, sc, sims, nbrs, q_n, e, d, deg_p, n_nodes, stream
+    "knn_slab_expand": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, t_jk, blosum, state, out, g, lq, lt, k, segments, gap_first,
     # gap_ext, stream
     "knn_sw_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

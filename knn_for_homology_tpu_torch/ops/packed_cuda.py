@@ -90,13 +90,14 @@ def quantize_database(db: torch.Tensor) -> SQ8Database:
 
 
 def quantize_queries(
-    queries: torch.Tensor, two_level: bool
+    queries: torch.Tensor, two_level: bool, reciprocal: bool = True
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """(q8, q_lo, qsc) of the sym storages, as packed_pallas_topk computes
     them: int8 codes and per-query scales; sym2 adds the residual at
-    exactly qsc/128 (codes ≤ 64)."""
+    exactly qsc/128 (codes ≤ 64). `reciprocal` as in quantize_int8 (the
+    reference traces this inside its jitted searches)."""
     q32 = queries.to(torch.float32)
-    q8, qsc = quantize_int8(q32, reciprocal=True)
+    q8, qsc = quantize_int8(q32, reciprocal=reciprocal)
     q_lo = None
     if two_level:
         resid = q32 / qsc[:, None] - q8.to(torch.float32)
@@ -176,16 +177,28 @@ def segment_packed_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernels: the same [Q, R·W] int32
     packed buffer (fp32 matmul, TF32 off)."""
-    n = db.shape[0]
-    q_n = queries.shape[0]
+    sims = _packed_sims(queries, db, metric, storage, scales, q_lo)
+    return pack_lanes(sims, db_tile, r_slots, pass_bits(db.shape[0], db_tile))
+
+
+def pack_lanes(
+    sims: torch.Tensor, db_tile: int, r_slots: int, jbits: int,
+    valid: torch.Tensor = None,
+) -> torch.Tensor:
+    """[Q, N] similarities -> the [Q, R·W] packed buffer: column c packed
+    with its pass c // W into lane c % W, each lane's R largest kept in
+    descending order. Columns where `valid` [N] is False never enter."""
+    q_n, n = sims.shape
     w, r = db_tile, r_slots
     passes = -(-n // w)
-    jmax = (1 << pass_bits(n, w)) - 1
-    sims = _packed_sims(queries, db, metric, storage, scales, q_lo)
+    jmax = (1 << jbits) - 1
     oi = _ordered_int(sims.contiguous().view(torch.int32))
-    rev_pass = jmax - torch.arange(n, device=db.device, dtype=torch.int32) // w
+    rev_pass = jmax - torch.arange(n, device=sims.device, dtype=torch.int32) // w
+    cand = (oi & ~jmax) | rev_pass[None, :]
+    if valid is not None:
+        cand = torch.where(valid[None, :], cand, INT32_MIN)
     full = oi.new_full((q_n, passes * w), INT32_MIN)
-    full[:, :n] = (oi & ~jmax) | rev_pass[None, :]
+    full[:, :n] = cand
     # [Q, W, P]: packed values are unique within a lane (distinct pass
     # bits), so topk needs no tie rule
     per_lane = full.view(q_n, passes, w).transpose(1, 2)

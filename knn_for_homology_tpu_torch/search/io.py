@@ -1,7 +1,7 @@
 """Index persistence (port of knn_for_homology_tpu/search/io.py).
 
 Same single-.npz format with a "kind" tag, so a flat index written by
-either package loads in the other. Only kind "flat" is ported.
+either package loads in the other. Kinds "flat" and "ivf" are ported.
 """
 
 from pathlib import Path
@@ -26,7 +26,11 @@ def read_index(path: Path, device="cuda"):
         from .flat import FlatIndex
 
         return FlatIndex.from_state(state, device=device)
-    if kind in ("lsh", "graph", "ivf"):
+    if kind == "ivf":
+        from .ivf import IVFIndex
+
+        return IVFIndex.from_state(state, device=device)
+    if kind in ("lsh", "graph"):
         raise NotImplementedError(
             f"index kind {kind!r} is not ported yet (see ROADMAP.md)"
         )

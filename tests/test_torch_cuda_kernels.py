@@ -20,11 +20,14 @@ from knn_for_homology_tpu_torch.ops import (
     align_cuda,
     exact_cuda,
     flat_cuda,
+    ivf_cuda,
     packed_cuda,
+    slab_cuda,
 )
 from knn_for_homology_tpu_torch.ops.align import encode_sequence
 from knn_for_homology_tpu_torch.ops.topk import oneshot_topk
 from knn_for_homology_tpu_torch.search.flat import FlatIndex
+from knn_for_homology_tpu_torch.search.ivf import IVFIndex
 
 pytestmark = pytest.mark.cuda
 METRICS = ["cosine", "ip", "l2"]
@@ -256,3 +259,101 @@ def test_flat_index_backends_launch_their_kernel(cuda, backend, metric, k,
     want = FlatIndex(metric, backend=backend, device="cpu").add(db).search(qs, k)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
+
+
+def _slab_table(seed, c, d, fill, device, deg_p=128, degree=None):
+    """Packed slabs of Gaussian rows: `c` groups of `fill` members each
+    (the rest padding), d not a multiple of 128 so the lane padding runs."""
+    rng = np.random.RandomState(seed)
+    degree = degree or deg_p
+    n = c * fill
+    db = torch.from_numpy(rng.randn(n, d).astype(np.float32))
+    members = np.full((c, degree), -1, np.int32)
+    members[:, :fill] = rng.permutation(n).reshape(c, fill)
+    packed = slab_cuda.pack_neighbours(db, torch.from_numpy(members), deg_p)
+    return db.to(device), tuple(t.to(device) for t in packed), rng
+
+
+@pytest.mark.parametrize(
+    "budget,r_slots,two_level",
+    [(256, 5, False), (256, 5, True), (4, 3, True), (16, 30, True)],
+)
+def test_kernel_j_bit_equal_to_plain(cuda, budget, r_slots, two_level):
+    # budget < 8 narrows the tile (W = budget·128); R = 30 puts the slots
+    # in device memory
+    db, (pv, pi, sc), rng = _slab_table(10, 300, 96, 90, cuda)
+    cells = torch.from_numpy(
+        rng.choice(300, budget, replace=False).astype(np.int32)).to(cuda)
+    q = torch.nn.functional.pad(db[:70], (0, 32))
+    q8, q_lo, _ = packed_cuda.quantize_queries(q, two_level)
+    tile = min(8, budget) * 128
+    before = ivf_cuda.segment_packed_indirect_kernel.launches
+    got = ivf_cuda.segment_packed_indirect_kernel(q8, pv, sc, pi, cells, tile,
+                                                  r_slots, q_lo)
+    assert ivf_cuda.segment_packed_indirect_kernel.launches == before + 1
+    want = ivf_cuda.segment_packed_indirect_plain(q8, pv, sc, pi, cells, tile,
+                                                  r_slots, q_lo)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("compute,k", [("sym", 10), ("sym2", 10),
+                                       ("sym2", 1000)])
+def test_ivf_union_topk_equals_cpu(cuda, compute, k):
+    # k = 1000 exceeds the 2 cells' real rows: (-inf, -1, -1) padding
+    db, (pv, pi, sc), _ = _slab_table(11, 40, 96, 60, cuda)
+    for cells in (torch.arange(16, dtype=torch.int32),
+                  torch.tensor([3, 7], dtype=torch.int32)):
+        got = ivf_cuda.ivf_union_topk(pv, sc, pi, cells.to(cuda), db[:50], k,
+                                      compute=compute)
+        want = ivf_cuda.ivf_union_topk(pv.cpu(), sc.cpu(), pi.cpu(), cells,
+                                       db[:50].cpu(), k, compute=compute)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    assert bool((got[2][:, 120:] == -1).all())
+
+
+@pytest.mark.parametrize("deg_p,degree,d", [(128, 128, 96), (32, 20, 96),
+                                            (128, 100, 1024)])
+def test_kernel_k_matches_plain(cuda, deg_p, degree, d):
+    # pad lanes ≥ deg_p are -inf; ids equal; sums in another order than
+    # the plain version's: 1e-5 relative
+    _, (pv, pi, sc), rng = _slab_table(12, 50, d, min(degree, 20), cuda,
+                                       deg_p, degree)
+    sel = torch.from_numpy(rng.randint(0, 50, size=(33, 7)).astype(
+        np.int32)).to(cuda)
+    q = torch.from_numpy(rng.randn(33, d).astype(np.float32)).to(cuda)
+    before = slab_cuda.beam_expand.launches
+    got_s, got_n = slab_cuda.beam_expand(sel, q, pv, pi, sc, deg_p)
+    assert slab_cuda.beam_expand.launches == before + 1
+    want_s, want_n = slab_cuda.beam_expand_plain(sel, q, pv, pi, sc, deg_p)
+    assert torch.equal(got_n, want_n)
+    assert torch.equal(torch.isneginf(got_s), torch.isneginf(want_s))
+    assert bool(torch.isneginf(got_s[:, :, deg_p:]).all())
+    fin = torch.isfinite(want_s)
+    torch.testing.assert_close(got_s[fin], want_s[fin], rtol=1e-5,
+                               atol=1e-5 * float(want_s[fin].abs().max()))
+
+
+@pytest.mark.parametrize("n_q,k,kernel", [(100, 10, "K"), (600, 10, "J"),
+                                          (600, 200, "J")])
+def test_ivf_index_on_the_card_equals_cpu(cuda, n_q, k, kernel):
+    # one index state on both devices: the per-probe path (K) below
+    # UNION_MIN_Q queries, the union scan (J) above; ids equal but near-ties
+    # (K's and the rescore's fp32 sums)
+    rng = np.random.RandomState(13)
+    centers = rng.randn(32, 96).astype(np.float32)
+    db = centers[rng.randint(0, 32, 2048)] + 0.08 * rng.randn(
+        2048, 96).astype(np.float32)
+    cpu = IVFIndex(metric="cosine", nprobe=4, device="cpu").add(db)
+    card = IVFIndex.from_state(cpu.state(), device="cuda")
+    counter = (slab_cuda.beam_expand if kernel == "K"
+               else ivf_cuda.segment_packed_indirect_kernel)
+    before = counter.launches
+    got = card.search(db[:n_q], k)
+    assert counter.launches > before
+    (gv, gi), (wv, wi) = got, cpu.search(db[:n_q], k)
+    np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-5)
+    for r, c in zip(*np.nonzero(gi != wi)):
+        # a near-tie swap, or a near-tie at the k-th place
+        near = np.abs(wv[r] - wv[r, c]) <= 1e-5
+        assert gi[r, c] in set(wi[r][near]) or near[-1], (r, c)

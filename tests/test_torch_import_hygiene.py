@@ -42,6 +42,10 @@ print("OK", len({modules!r}))
 def test_port_modules_are_all_listed():
     assert "knn_for_homology_tpu_torch.pipelines.benchmark" in MODULES
     assert "knn_for_homology_tpu_torch.ops.align_cuda" in MODULES
+    for name in ("ops.ivf_cuda", "ops.slab_cuda", "search.ivf",
+                 "pipelines.pfam_proteins", "data.pfam", "eval.analysis",
+                 "eval.render", "utils.io"):
+        assert f"knn_for_homology_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 15
 
 

@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's numpy modules (config, data,
 eval, interop, utils) against the originals: the same inputs must give
-equal outputs, and the MMseqs2 writers byte-equal files."""
+equal outputs, and the MMseqs2 writers byte-equal files. The copies that
+are verbatim (data/pfam.py, eval/analysis.py, eval/render.py,
+utils/io.py) must also stay byte-equal to the originals."""
 
 import dataclasses
 from pathlib import Path
@@ -10,12 +12,16 @@ import pytest
 
 from knn_for_homology_tpu import config as jconfig
 from knn_for_homology_tpu import interop as jinterop
+from knn_for_homology_tpu.data import pfam as jpfam
+from knn_for_homology_tpu.eval import analysis as janalysis
 from knn_for_homology_tpu.data.dataset import Dataset as JDataset
 from knn_for_homology_tpu.data.fasta import read_fasta as jread_fasta
 from knn_for_homology_tpu.data.fixtures import make_clustered
 from knn_for_homology_tpu.eval import metrics as jmetrics
 from knn_for_homology_tpu_torch import config as tconfig
 from knn_for_homology_tpu_torch import interop as tinterop
+from knn_for_homology_tpu_torch.data import pfam as tpfam
+from knn_for_homology_tpu_torch.eval import analysis as tanalysis
 from knn_for_homology_tpu_torch.data.dataset import Dataset as TDataset
 from knn_for_homology_tpu_torch.data.fasta import read_fasta as tread_fasta
 from knn_for_homology_tpu_torch.eval import metrics as tmetrics
@@ -100,3 +106,41 @@ def test_mmseqs_writers_byte_equal(tmp_path):
     assert len(jfiles) >= 8
     for name in jfiles:
         assert tfiles[name] == jfiles[name], name
+
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize(
+    "module", ["data/pfam.py", "eval/analysis.py", "eval/render.py",
+               "utils/io.py"],
+)
+def test_verbatim_copies_byte_equal(module):
+    port = ROOT / "knn_for_homology_tpu_torch" / module
+    assert port.read_bytes() == (ROOT / "knn_for_homology_tpu" / module).read_bytes()
+
+
+def test_pfam_homologs_and_analysis_equal():
+    """get_homologous_proteins, remove_self_hit_lossy, score_calibration
+    and per_query_precision_recall of the copies against the originals."""
+    rng = np.random.RandomState(8)
+    p2d = {f"P{i}": [(f"F{rng.randint(0, 5)}", (0, 40))]
+           + ([(f"F{rng.randint(5, 8)}", (50, 90))] if i % 3 == 0 else [])
+           for i in range(40)}
+    assert tpfam.get_homologous_proteins(p2d) == jpfam.get_homologous_proteins(p2d)
+    hits = rng.randint(-1, 40, size=(40, 15))
+    hits[::4, 6] = np.arange(40)[::4]
+    scores = -np.sort(-rng.rand(40, 15), axis=1)
+    for a, b in zip(tanalysis.remove_self_hit_lossy(hits, scores, np.arange(40)),
+                    janalysis.remove_self_hit_lossy(hits, scores, np.arange(40))):
+        np.testing.assert_array_equal(a, b)
+    correct = rng.rand(40, 15) < 0.4
+    got = tanalysis.score_calibration(scores, correct)
+    want = janalysis.score_calibration(scores, correct)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+    totals = rng.randint(0, 20, size=40)
+    for a, b in zip(tanalysis.per_query_precision_recall(scores, correct, totals),
+                    janalysis.per_query_precision_recall(scores, correct, totals)):
+        np.testing.assert_array_equal(a, b)
