@@ -30,7 +30,7 @@
 // BN columns' physical rows, scales and validity in shared memory, then
 // scores and inserts exactly as F does, so the two cannot drift. The TPU
 // kernel scored a query block against e*128 = 1024 lanes per step and kept
-// R*1024 slots per query in VMEM (~16 KB at k = 1000); here a block owns BN
+// all R*1024 slots of each query in its fast memory; here a block owns BN
 // = 64 of those lanes for BM = 32 queries, as in F, so its slot state is
 // BM*BN*R*4 bytes (32 KB at R = 4) whatever the tile width, and the width
 // only sets gridDim.y.
