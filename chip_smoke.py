@@ -658,6 +658,29 @@ def plain_ivf_kernels():
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def ivf_budgets():
+    """The IVF index's debug lines (the union scan's cell budget per query
+    block), collected while the block runs."""
+    import logging
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger = logging.getLogger("knn_for_homology_tpu_torch.search.ivf")
+    handler, level = Keep(logging.DEBUG), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.DEBUG)
+    try:
+        yield lines
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
 def recall_of(got, want):
     """Mean share of each row of `want` found in the same row of `got`."""
     return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / len(b)
@@ -706,11 +729,13 @@ def run_ivf_path(train, test, kernels):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         metrics, walls = {}, {}
-        for mode in ("ivf", "flat"):
-            t0 = time.perf_counter()
-            metrics[mode] = pfam_proteins.run(npy, ids, p2d, index_mode=mode,
-                                              k=BENCH_K, device="cuda")
-            walls[mode] = time.perf_counter() - t0
+        with ivf_budgets() as budgets:
+            for mode in ("ivf", "flat"):
+                t0 = time.perf_counter()
+                metrics[mode] = pfam_proteins.run(npy, ids, p2d,
+                                                  index_mode=mode, k=BENCH_K,
+                                                  device="cuda")
+                walls[mode] = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
 
     # the online batch: below UNION_MIN_Q, the per-probe path
@@ -743,6 +768,7 @@ def run_ivf_path(train, test, kernels):
     assert metrics["ivf"]["auc1"] >= metrics["flat"]["auc1"] - IVF_AUC1_SLACK, (
         metrics["ivf"]["auc1"], metrics["flat"]["auc1"])
     assert online_recall >= ONLINE_RECALL, f"online recall {online_recall}"
+    log("phase 9 IVF union scan: " + "; ".join(budgets))
     log(f"phase 9 peak {peak / 2**30:.2f} GiB | online batch: build"
         f" {build_s:.3f} s, {ONLINE_QUERIES} queries at k={ONLINE_K} in"
         f" {online_s * 1e3:.1f} ms (per-probe path), recall {online_recall:.4f}"

@@ -27,6 +27,7 @@ device is explicit (`device`, "cuda" by default).
 """
 
 import logging
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -700,6 +701,11 @@ class IVFIndex:
                     min(1 << max(int(x) - 1, 0).bit_length(), c)
                     for x in u.tolist()
                 ]
+                logger.debug(
+                    "%d queries in %d blocks: union cell budgets %s of %d"
+                    " cells", q_n, len(blocks),
+                    dict(sorted(Counter(budgets).items())), c,
+                )
                 # low-locality escape: huge unions relative to nprobe make
                 # the per-probe path cheaper
                 if float(np.median(budgets)) >= (
