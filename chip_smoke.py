@@ -46,12 +46,15 @@ d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
      trip on the card.
 
 Phase 3 also holds the encoder's kernels at full width: G at 7000 tokens x
-1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128,
-with scaled_dot_product_attention timed beside H and I as the library
+1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128 and
+27 x 32 x 256 x 128 (H and I fed the [H, 2L-1] offset-bias table), with
+scaled_dot_product_attention timed beside H and I as the library
 yardstick; and the IVF path's kernels: J at 1024 queries x 256 cells
 (32768 rows) x 1024, k = 1000 (sym and sym2, buffers bit-equal), K at 4096
 queries x 32 probes x 128 x 1024. Every kernel's line carries its bound: the least time the card
 could take, from its operations and bytes (PEAK_OPS, HBM_BYTES_PER_S).
+Times are medians of five timed windows (cuda_ms), after a two-second
+warm-up of the card.
 
 Any failure raises, so the script exits non-zero without the result line.
 The last three lines are the card (nvidia-smi name, power limit), the
@@ -146,20 +149,37 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=3):
-    """Mean milliseconds per call on the card (CUDA events, one warm-up)."""
+def cuda_ms(fn, reps=10, windows=5):
+    """Milliseconds per call on the card: the median over `windows` timed
+    windows of `reps` calls each (CUDA events, one warm-up call first)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def warm_card(seconds=2.0):
+    """Keep the card busy for `seconds` (bf16 products), so that phase 3's
+    first timings do not catch its clocks still rising."""
+    import torch
+
+    a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize()
 
 
 def tensor_bytes(*tensors) -> int:
@@ -456,7 +476,12 @@ def check_encoder_kernels(kernels, seed):
     """Phase 3 for kernels G, H, I at ProtT5-XL's width, each against its
     plain version on the same inputs (BF16_TOL), timed beside its bound;
     scaled_dot_product_attention with the same float bias and mask and
-    scale 1 is H's and I's library yardstick (the port never calls it)."""
+    scale 1 is H's and I's library yardstick (the port never calls it).
+    H and I take the [H, 2L-1] offset table; their bounds count its bytes
+    and the mask's, and the function's 4·B·H·L²·d_kv operations (I's
+    second sweep recomputes q.k: 1.5x that on the card). I also runs at a
+    second shape, a 7000-token batch at the length mix's median (27 x 256),
+    printed beside its SDPA time."""
     import torch
     import torch.nn.functional as F
 
@@ -532,24 +557,32 @@ def check_encoder_kernels(kernels, seed):
                          flash_cuda.flash_attention_t5, flash_attention_plain,
                          table, dense_from_table(table, l)),
     )
-    # I: the opt-in short route at its limit, 13 rows of 512
-    l = 512
-    bias = t5.position_bias(rel, l, l, cfg)[0]
+    # I: the opt-in short route at its limit, 13 rows of 512, and a
+    # 7000-token batch at the length mix's median, 27 rows of 256
+    i_cases = {}
+    for b, l, lengths in ((13, 512, [512 - 29 * i for i in range(13)]),
+                          (27, 256, [256 - 7 * i for i in range(27)])):
+        table = offset_bias_table(rel, l, cfg.rel_buckets, cfg.rel_max_distance)
+        i_cases[(b, l)] = attention_case(
+            "I", b, l, lengths, short_cuda.short_attention_t5,
+            short_attention_plain, table, dense_from_table(table, l))
     kernels["I"] = dict(
         name="short_t5", route="cuda",
         source="knn_for_homology_tpu_torch/csrc/short_t5.cu",
         replaces="knn_for_homology_tpu/ops/short_attention.py:37",
-        **attention_case("I", 13, l, [512 - 29 * i for i in range(13)],
-                         short_cuda.short_attention_t5, short_attention_plain,
-                         bias, bias),
+        **i_cases[(13, 512)],
     )
-    for key, shape in (("H", "B=2, H=32, L=3200, dk=128"),
-                       ("I", "B=13, H=32, L=512, dk=128")):
-        kv = kernels[key]
-        log(f"phase 3 kernel {key} {kv['name']} [{shape}]: max_abs_err"
-            f" {kv['max_abs_err']:.3g}, {kv['ms']:.3f} ms vs plain"
+    blocks = {"H": flash_cuda.blocks_per_sm(3200),
+              "I": short_cuda.blocks_per_sm(512)}
+    for key, shape, kv in (
+            ("H", "B=2, H=32, L=3200, dk=128", kernels["H"]),
+            ("I", "B=13, H=32, L=512, dk=128", kernels["I"]),
+            ("I", "B=27, H=32, L=256, dk=128", i_cases[(27, 256)])):
+        log(f"phase 3 kernel {key} {kv.get('name', 'short_t5')} [{shape}]:"
+            f" max_abs_err {kv['max_abs_err']:.3g}, {kv['ms']:.3f} ms vs plain"
             f" {kv['plain_ms']:.3f} ms, sdpa {kv['library_ms']:.3f} ms, bound"
-            f" {kv['bound_ms']:.3f} ms ({kv['bound_by']})")
+            f" {kv['bound_ms']:.3f} ms ({kv['bound_by']}), {blocks[key]}"
+            " block(s) per SM")
 
 
 def check_ivf_kernels(db, q_all, kernels, seed):
@@ -1091,6 +1124,7 @@ def main() -> None:
         kernels = {}
 
         # ---- phase 3: kernels against their plain versions
+        warm_card()
         q = q_all[:1024].contiguous()
         got = flat_cuda.flat_topk_kernel(db, q, HITS, "cosine")
         want = flat_cuda.flat_topk_plain(db, q, HITS, "cosine")
@@ -1190,7 +1224,7 @@ def main() -> None:
             kw = dict(convention="mmseqs", segments=s_b,
                       max_seg_len=sweep if s_b > 1 else None)
             ms = cuda_ms(lambda: align_cuda.sw_scores_grouped(qd, td, **kw))
-            plain_ms = cuda_ms(
+            plain_ms = cuda_ms(  # ~0.5 s a call: windows of one call
                 lambda: align_cuda.sw_scores_grouped_plain(qd, td, **kw), reps=1
             )
             c_ms, c_plain_ms = c_ms + ms, c_plain_ms + plain_ms

@@ -16,10 +16,11 @@ JAX package resolves it on its accelerator):
     ops/flash_cuda.py:flash_attention_t5 (kernel H or its plain version)
     with one [H, 2L-1] offset-bias table per encode; False →
     `_attention_blockwise`, the JAX package's online-softmax loop.
-  * Attention for L ≤ blockwise_above: dense `_attention`, or with
-    `use_short_kernel=True` and L ≤ short_kernel_max
-    ops/short_cuda.py:short_attention_t5 (kernel I or its plain version).
-    "auto" is off, as in the JAX package.
+  * Attention for L ≤ blockwise_above: dense `_attention` with the
+    [1, H, L, L] position_bias, or with `use_short_kernel=True` and L ≤
+    short_kernel_max ops/short_cuda.py:short_attention_t5 (kernel I or its
+    plain version) with the [H, 2L-1] offset-bias table. "auto" is off, as
+    in the JAX package.
 The q/k/v/o projections are torch.matmul on every route.
 
 Numerics follow the JAX code: rms_norm rounds to the model dtype and then
@@ -160,13 +161,14 @@ def _attention(x, params, bias, mask, config: T5Config):
     return _output(x, ctx, params)
 
 
-def _attention_short(x, params, bias, mask, config: T5Config):
+def _attention_short(x, params, mask, table, config: T5Config):
     """Dense attention through kernel I (ops/short_cuda.py): projections
-    here, scores + softmax + PV fused, the [H, L, L] bias shared by layers."""
+    here, scores + bias + softmax + PV fused. `table` [H, 2L-1] fp32 comes
+    from ops/flash_attention.offset_bias_table, once per encode."""
     from ..ops.short_cuda import short_attention_t5
 
     q, k, v = _projections(x, params, config)
-    ctx = short_attention_t5(q, k, v, mask, bias[0])
+    ctx = short_attention_t5(q, k, v, mask, table)
     return _output(x, ctx, params)
 
 
@@ -246,25 +248,28 @@ def encode(
     length = token_ids.shape[1]
     rel = params["rel_embedding"]
     blockwise = length > config.blockwise_above
-    if blockwise:
-        use_flash = config.use_flash_kernel == "auto" or bool(
-            config.use_flash_kernel
-        )
+    use_flash = blockwise and (
+        config.use_flash_kernel == "auto" or bool(config.use_flash_kernel)
+    )
+    use_short = (
+        not blockwise
+        and length <= config.short_kernel_max
+        and config.use_short_kernel != "auto"
+        and bool(config.use_short_kernel)
+    )
+    if blockwise or use_short:
         table = offset_bias_table(
             rel, length, config.rel_buckets, config.rel_max_distance
         )
     else:
         bias = position_bias(rel, length, length, config)
-        use_short = length <= config.short_kernel_max and (
-            config.use_short_kernel != "auto" and bool(config.use_short_kernel)
-        )
     for layer in params["layers"]:
-        if blockwise and use_flash:
+        if use_flash:
             x = _attention_flash(x, layer["attn"], mask, table, config)
         elif blockwise:
             x = _attention_blockwise(x, layer["attn"], mask, table, config)
         elif use_short:
-            x = _attention_short(x, layer["attn"], bias, mask, config)
+            x = _attention_short(x, layer["attn"], mask, table, config)
         else:
             x = _attention(x, layer["attn"], bias, mask, config)
         x = _mlp(x, layer["mlp"], config)

@@ -2,10 +2,13 @@
 
 Every `csrc/*.cu` compiles in its own nvcc process, all started together,
 and one more nvcc call links the objects into a shared library with a plain
-C interface (no PyTorch headers: seconds instead of minutes). The library
+C interface (no PyTorch headers: seconds instead of minutes), against the
+driver library (`-lcuda`, for the attention kernels' TMA maps; the
+toolkit's stub at link time, the driver's libcuda.so.1 at load time). The library
 lands in `build/torch_kernels/` at the repository root (git-ignored),
-named by a hash of the sources and flags, so an edited kernel rebuilds and
-an unchanged one loads from disk. Pointers and the stream travel as
+named by a hash of the sources and flags (taken once per process), so an
+edited kernel rebuilds in the next process and an unchanged one loads from
+disk. Pointers and the stream travel as
 `ctypes.c_void_p`; every entry point returns `cudaGetLastError()` after its
 launch, which `check` turns into an exception.
 
@@ -13,6 +16,7 @@ Nothing here runs at import: the CPU tests import every module of the port.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -30,7 +34,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: name -> argument types (every one returns cudaError_t)
+# C entry points: name -> argument types (each returns cudaError_t, but
+# the *_blocks_per_sm queries, which return a count or -1)
 SIGNATURES = {
     # q, db, vals, ids, part_vals, part_ids, q_n, n, d, k, splits, l2, stream
     "knn_flat_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -54,8 +59,11 @@ SIGNATURES = {
     "knn_ffn_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # q, k, v, mask, table, out, b, h, l, stream
     "knn_flash_t5": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k, v, mask, bias, out, b, h, l, stream
+    # q, k, v, mask, table, out, b, h, l, stream
     "knn_short_t5": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # l -> blocks of kernel H / I that fit on one SM (the occupancy query)
+    "knn_flash_t5_blocks_per_sm": [_I],
+    "knn_short_t5_blocks_per_sm": [_I],
 }
 
 _LIB = {}  # digest -> loaded CDLL (one per process)
@@ -65,7 +73,11 @@ def sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+@functools.lru_cache(maxsize=None)
 def _digest() -> str:
+    """Hash of the sources and flags, taken once per process: every kernel
+    call asks for the library, and re-reading the sources each time cost
+    milliseconds of host time per launch."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sources():
         h.update(path.name.encode())
@@ -82,6 +94,15 @@ def _nvcc() -> str:
     if found is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return found
+
+
+def _link_flags(nvcc: str):
+    """-lcuda, with the toolkit's stub directory (libcuda.so is the
+    driver's and need not be on the linker's path)."""
+    root = Path(nvcc).resolve().parent.parent
+    stubs = [root / "lib64" / "stubs",
+             root / "targets" / "x86_64-linux" / "lib" / "stubs"]
+    return [f"-L{d}" for d in stubs if d.is_dir()] + ["-lcuda"]
 
 
 def library_path() -> Path:
@@ -121,7 +142,7 @@ def build() -> Path:
             for src, obj in zip(units, objs)
         ])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                   *map(str, objs)]])
+                   *map(str, objs), *_link_flags(nvcc)]])
         tmp.replace(out)  # atomic: a concurrent loader never sees half a file
     finally:
         for path in (*objs, tmp):

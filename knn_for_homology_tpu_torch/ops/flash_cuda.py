@@ -3,8 +3,9 @@
 Port of knn_for_homology_tpu/ops/flash_attention.py:_flash_kernel (entry
 flash_attention_t5). A CUDA tensor goes to the kernel; a CPU tensor to
 ops/flash_attention.py:flash_attention_plain. The kernel takes bf16 q/k/v
-with d_kv = 128, a bool mask and the fp32 [H, 2L-1] table, which it holds
-in shared memory: (2L-1)·4 bytes, up to MAX_LEN.
+with d_kv = 128, a bool mask and the fp32 [H, 2L-1] table; each block
+holds the window of its head's row that its 128 queries reach, (L + 191)·4
+bytes, in shared memory beside 128 KB of q and k/v tiles, up to MAX_LEN.
 """
 
 import torch
@@ -13,8 +14,8 @@ from . import _build
 from .attention_checks import check_qkv
 from .flash_attention import flash_attention_plain
 
-# longest L whose table fits beside the kernel's 35 KB of K/V tiles in the
-# 227 KB of shared memory a block may use
+# an L whose table window and key bits fit beside the kernel's 128 KB of
+# tiles in the 227 KB of shared memory a block may use (up to 24128 would)
 MAX_LEN = 24000
 
 
@@ -47,3 +48,9 @@ def flash_attention_t5(
 
 
 flash_attention_t5.launches = 0
+
+
+def blocks_per_sm(length: int) -> int:
+    """Blocks of the kernel that fit on one SM at this length (the CUDA
+    occupancy query, registers and shared memory together)."""
+    return _build.library().knn_flash_t5_blocks_per_sm(length)

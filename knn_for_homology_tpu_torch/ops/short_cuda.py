@@ -3,7 +3,8 @@
 Port of knn_for_homology_tpu/ops/short_attention.py:_short_kernel (entry
 short_attention_t5). A CUDA tensor goes to the kernel; a CPU tensor to
 ops/short_attention.py:short_attention_plain. The kernel takes bf16 q/k/v
-with d_kv = 128, a bool mask and the fp32 [H, L, L] bias.
+with d_kv = 128, a bool mask and the fp32 [H, 2L-1] offset table of
+ops/flash_attention.py:offset_bias_table.
 """
 
 import torch
@@ -12,7 +13,7 @@ from . import _build
 from .attention_checks import check_qkv
 from .short_attention import short_attention_plain
 
-MAX_LEN = 512  # the kernel's [64, L] fp32 score tile lives in shared memory
+MAX_LEN = 512  # the route's gate (models/t5.py short_kernel_max)
 
 
 def short_attention_t5(
@@ -20,13 +21,13 @@ def short_attention_t5(
     k: torch.Tensor,
     v: torch.Tensor,
     mask: torch.Tensor,  # [B, L] bool
-    bias: torch.Tensor,  # [H, L, L] fp32
+    table: torch.Tensor,  # [H, 2L-1] fp32
 ) -> torch.Tensor:
     """→ context [B, H, L, dk] in q's dtype."""
     b, h, l, _ = q.shape
-    check_qkv("kernel I", q, k, v, mask, bias, (h, l, l))
+    check_qkv("kernel I", q, k, v, mask, table, (h, 2 * l - 1))
     if q.device.type == "cpu":
-        return short_attention_plain(q, k, v, mask, bias)
+        return short_attention_plain(q, k, v, mask, table)
     if l > MAX_LEN:
         raise ValueError(f"kernel I handles L ≤ {MAX_LEN}, got {l}")
     out = torch.empty_like(q)
@@ -34,7 +35,7 @@ def short_attention_t5(
         return out
     code = _build.library().knn_short_t5(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, h, l, _build.stream_ptr(q.device),
+        table.data_ptr(), out.data_ptr(), b, h, l, _build.stream_ptr(q.device),
     )
     _build.check(code, "knn_short_t5")
     short_attention_t5.launches += 1
@@ -42,3 +43,9 @@ def short_attention_t5(
 
 
 short_attention_t5.launches = 0
+
+
+def blocks_per_sm(length: int) -> int:
+    """Blocks of the kernel that fit on one SM at this length (the CUDA
+    occupancy query, registers and shared memory together)."""
+    return _build.library().knn_short_t5_blocks_per_sm(length)

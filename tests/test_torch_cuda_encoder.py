@@ -91,7 +91,9 @@ def _attention_inputs(seed, b, h, l, device, all_masked_row=True):
     return q, k, v, torch.from_numpy(mask).to(device), rel.to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("b,h,l", [(1, 2, 1), (2, 3, 65), (3, 2, 200),
+# the ragged edges of H's 64-key tiles and 128-query blocks
+@pytest.mark.parametrize("b,h,l", [(1, 2, 1), (2, 3, 65), (3, 2, 127),
+                                   (2, 2, 129), (3, 2, 200), (2, 2, 1025),
                                    (2, 32, 3200)])
 def test_kernel_h_matches_plain(cuda, b, h, l):
     q, k, v, mask, rel = _attention_inputs(1, b, h, l, cuda)
@@ -104,16 +106,29 @@ def test_kernel_h_matches_plain(cuda, b, h, l):
         assert not got[-1].float().abs().any()
 
 
-@pytest.mark.parametrize("b,h,l", [(1, 2, 1), (2, 3, 100), (3, 2, 512),
-                                   (13, 32, 512)])
+# the ragged edges of I's 64-key tiles and 64-query blocks, the route's
+# limit, and the phase-3 batches (13 x 512, 27 x 256)
+@pytest.mark.parametrize("b,h,l", [(1, 2, 1), (2, 3, 63), (2, 2, 64),
+                                   (3, 2, 65), (2, 3, 100), (2, 2, 127),
+                                   (2, 2, 128), (2, 2, 129), (3, 2, 512),
+                                   (13, 32, 512), (27, 32, 256)])
 def test_kernel_i_matches_plain(cuda, b, h, l):
     q, k, v, mask, rel = _attention_inputs(2, b, h, l, cuda)
-    config = t5.T5Config(num_heads=h)
-    bias = t5.position_bias(rel, l, l, config)[0]
+    table = offset_bias_table(rel, l, 32, 128)
     before = short_cuda.short_attention_t5.launches
-    got = short_cuda.short_attention_t5(q, k, v, mask, bias)
+    got = short_cuda.short_attention_t5(q, k, v, mask, table)
     assert short_cuda.short_attention_t5.launches == before + 1
-    assert_bf16_close(got, short_attention_plain(q, k, v, mask, bias))
+    assert_bf16_close(got, short_attention_plain(q, k, v, mask, table))
+    if b > 1:  # a row with no real key softmaxes to uniform over its L keys
+        mean_v = v[-1].float().mean(dim=1, keepdim=True).expand_as(got[-1])
+        assert_bf16_close(got[-1].float(), mean_v)
+
+
+def test_attention_blocks_per_sm(cuda):
+    """I fits two blocks per SM at its limit; H one of two warpgroups and a
+    producer warp (the CUDA occupancy query)."""
+    assert short_cuda.blocks_per_sm(512) >= 2
+    assert flash_cuda.blocks_per_sm(3200) >= 1
 
 
 def test_attention_kernels_refuse_other_widths(cuda):

@@ -2,7 +2,8 @@
 ops/flash_attention.py, ops/short_attention.py) against the JAX package's
 Pallas kernels in interpret mode, on the same numpy inputs: an uneven
 length, a padded token count, a ragged mask and a row with every key
-masked. Also H's offset-bias table against the Toeplitz bias blocks.
+masked. Also H's offset-bias table against the Toeplitz bias blocks. H's
+and I's port take that table; I's JAX kernel takes the dense bias.
 
 Tolerances: fp32 inputs test the algorithm, |port - jax| ≤ 1e-5 (values of
 order 1, fp32 sums in other orders). bf16 inputs test the model dtype: both
@@ -99,7 +100,10 @@ def test_flash_plain_matches_pallas(dtype, length):
 @pytest.mark.parametrize("length", [100, 128], ids=["uneven", "even"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_short_plain_matches_pallas(dtype, length):
-    from knn_for_homology_tpu_torch.models import t5
+    """The port's I and its plain version take the [H, 2L-1] offset table;
+    the JAX kernel takes the dense [H, L, L] bias from the JAX package's
+    position_bias on the same numpy rel. Tolerance as the module's."""
+    from knn_for_homology_tpu.models import t5 as jt5
 
     (jq, tq), (jk, tk), (jv, tv), mask, rel = _attention_inputs(2, 3, 2, length, 16, dtype)
     if length % 128:
@@ -107,15 +111,26 @@ def test_short_plain_matches_pallas(dtype, length):
         # row would average over; the port (like models/t5.py:_attention)
         # averages over the L keys, so this case keeps one real key
         mask[-1, 0] = True
-    bias = t5.position_bias(
-        torch.from_numpy(rel), length, length, t5.T5Config(num_heads=2)
-    )[0]
-    want = short_attention_t5(jq, jk, jv, jnp.asarray(mask),
-                              jnp.asarray(bias.numpy()), interpret=True)
-    got = short_cuda.short_attention_t5(tq, tk, tv, torch.from_numpy(mask), bias)
+    config = jt5.T5Config(num_heads=2)
+    bias = jt5.position_bias(jnp.asarray(rel), length, length, config)[0]
+    want = short_attention_t5(jq, jk, jv, jnp.asarray(mask), bias, interpret=True)
+    table = offset_bias_table(torch.from_numpy(rel), length, 32, 128)
+    got = short_cuda.short_attention_t5(tq, tk, tv, torch.from_numpy(mask), table)
     assert_matches(got, want, dtype)
-    assert_matches(short_attention_plain(tq, tk, tv, torch.from_numpy(mask), bias),
+    assert_matches(short_attention_plain(tq, tk, tv, torch.from_numpy(mask), table),
                    want, dtype)
+
+
+@pytest.mark.parametrize("length", [1, 100, 128])
+def test_short_all_masked_row_is_uniform(length):
+    """A row with every key masked softmaxes to uniform over its L keys
+    (the -1e9 fill, p not zeroed): its context is the mean of v."""
+    (_, q), (_, k), (_, v), mask, rel = _attention_inputs(5, 3, 2, length, 16, "fp32")
+    table = offset_bias_table(torch.from_numpy(rel), length, 32, 128)
+    got = short_cuda.short_attention_t5(q, k, v, torch.from_numpy(mask), table)
+    want = v[-1].mean(dim=1, keepdim=True).expand_as(got[-1])
+    torch.testing.assert_close(got[-1], want, rtol=0, atol=1e-6)
+    assert torch.isfinite(got).all()
 
 
 @pytest.mark.parametrize("num_buckets,max_distance", [(32, 128), (16, 40)])
@@ -149,4 +164,7 @@ def test_kernel_wrappers_check_shapes():
         flash_cuda.flash_attention_t5(q, q, q, torch.ones(1, 5, dtype=torch.bool),
                                       torch.zeros(2, 8))
     with pytest.raises(ValueError):
-        short_cuda.short_attention_t5(q, q, q, torch.ones(1, 5), torch.zeros(2, 5, 5))
+        short_cuda.short_attention_t5(q, q, q, torch.ones(1, 5), torch.zeros(2, 9))
+    with pytest.raises(ValueError):  # I takes the offset table, not [H, L, L]
+        short_cuda.short_attention_t5(q, q, q, torch.ones(1, 5, dtype=torch.bool),
+                                      torch.zeros(2, 5, 5))

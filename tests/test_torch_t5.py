@@ -132,6 +132,32 @@ def test_encode_matches_jax(dtype, route, fused):
     assert_matches(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_short_route_matches_dense_route_and_jax(dtype, monkeypatch):
+    """encode() at TINY with use_short_kernel=True (ops/short_cuda.py fed
+    the [H, 2L-1] offset table, its plain version on the CPU) equals the
+    port's dense route (position_bias) and the JAX package's dense encoder,
+    within the module's tolerance."""
+    from knn_for_homology_tpu_torch.ops import short_cuda
+
+    tables = []
+    real = short_cuda.short_attention_t5
+
+    def spy(q, k, v, mask, table):
+        tables.append(tuple(table.shape))
+        return real(q, k, v, mask, table)
+
+    monkeypatch.setattr(short_cuda, "short_attention_t5", spy)
+    length, flags = ROUTES["short"]
+    dense, jax_dense = _encode_both(dtype, length, True, {})
+    assert not tables
+    short, _ = _encode_both(dtype, length, True, flags)
+    heads = tt5.TINY.num_heads
+    assert tables == [(heads, 2 * length - 1)] * tt5.TINY.num_layers
+    assert_matches(short, dense, dtype)
+    assert_matches(short, jax_dense, dtype)
+
+
 def test_auto_flags_resolve_to_the_accelerator_routes(monkeypatch):
     """"auto" takes the fused FFN and, above blockwise_above, the flash
     route; the short kernel stays off."""
