@@ -902,9 +902,10 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
+# H and I are two instantiations of csrc/attention_t5.cuh's kernel
 ENCODER_KERNELS = (("G ffn_fused", ("ffn_fused",)),
-                   ("H flash_t5", ("flash_t5",)),
-                   ("I short_t5", ("short_t5",)))
+                   ("H flash_t5", ("attention_t5_kernel<2",)),
+                   ("I short_t5", ("attention_t5_kernel<1",)))
 
 
 def device_time_shares(prof, named=ENCODER_KERNELS):

@@ -5,11 +5,12 @@
 // [B, L]. T5 has no 1/sqrt(d_kv) scale.
 //
 // Block layout. A block takes BQ = 64 * NWG queries of one (batch row,
-// head): NWG warpgroups of 64 rows each (H: 2, plus a producer warp; I: 1,
-// two blocks per SM). Blocks are numbered query tile first, so the blocks
-// resident at once share one head's k and v in L2; each block starts its
-// key sweeps at its own tile and wraps around.
-//   * Copies: one thread loads q once and then every 64-key tile of k and
+// head): NWG consumer warpgroups of 64 rows each and a producer warp (H:
+// NWG = 2; I: NWG = 1, two blocks per SM). Blocks are numbered query tile
+// first, so the blocks resident at once share one head's k and v in L2;
+// each block starts its key sweeps at its own tile and wraps around.
+//   * Copies: the producer warp's lane 0 loads q once and then every
+//     64-key tile of k and
 //     v by TMA (cp.async.bulk.tensor; 4-d maps {64 cols, L rows, 2 halves
 //     of d_kv, B*H}, one 16 KB box per tile, 128-byte swizzle; rows past L
 //     arrive as zeros) into a k ring of 3 slots and a v ring of 3 (H) or
@@ -78,17 +79,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                :: "r"(smem_u32(bar)) : "memory");
-}
-
-// whether the phase of parity `parity` has completed, without waiting
-__device__ __forceinline__ bool mbar_test(uint64_t* bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  return done != 0;
 }
 
 // wait until the phase of parity `parity` has completed; a wait of 2^30
@@ -475,23 +465,22 @@ struct Consumer {
   }
 };
 
-// Two block shapes. H: two consumer warpgroups (128 queries) and one
-// producer warp, whose lane 0 keeps q and the k and v rings loaded in the
-// order the consumers need them, never holding up a consumer; one block
-// per SM. I: one consumer warpgroup (64 queries) whose thread 0 also
-// issues the copies, no producer warp, so a block is 128 threads and two
-// blocks fit per SM. (The card charges registers by whole warpgroups: a
-// 160-thread block of I is charged as 256, and two would not fit.)
+// Warp specialisation: NWG consumer warpgroups and one producer warp,
+// whose lane 0 keeps q and the k and v rings loaded in the order the
+// consumers need them, never holding up a consumer. The card charges a
+// block registers by whole warpgroups, so a block of NWG * 128 + 32
+// threads is charged as (NWG + 1) * 128: H (288 threads) gets 168
+// registers a thread and one block per SM; I (160 threads) is capped at
+// 128, so that two blocks fit per SM. A register cap, not launch bounds:
+// __launch_bounds__(160, 2) would allow 204, and then one block fits.
 template <int NWG, bool SHORT>
-__global__ void __launch_bounds__(NWG * 128 + (NWG == 2 ? 32 : 0),
-                                  SHORT ? 2 : 1)
+__global__ void __maxnreg__(SHORT ? 128 : 168)
 attention_t5_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
                     const uint8_t* __restrict__ mask,
                     const float* __restrict__ table, bf16* __restrict__ out,
                     int h_n, int l) {
-  constexpr bool PRODUCER_WARP = NWG == 2;
   constexpr int BQ = 64 * NWG;
   constexpr int KST = k_slots<NWG>(), VST = v_slots<NWG>();
   extern __shared__ unsigned char smem_raw[];
@@ -514,52 +503,6 @@ attention_t5_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const Steps<SHORT> steps{n_tiles, SHORT ? 2 * n_tiles : n_tiles,
                            (int)(blockIdx.x * n_tiles / gridDim.x)};
-  const int first_pv = SHORT ? n_tiles : 0;  // step of the first PV product
-
-  // The copies: q once; k(i) for step i; v(j) for the j-th PV step. Each
-  // goes into its ring slot once every consumer warp has released the
-  // slot's previous tile. `issue_k` / `issue_v` wait for that release
-  // unless `try_only`, when they return false instead.
-  int k_next = 0, v_next = 0;
-  auto issue_k = [&](bool try_only) {
-    const int slot = k_next % KST, parity = ((k_next / KST) & 1) ^ 1;
-    if (try_only && !mbar_test(&k_empty[slot], parity)) return false;
-    mbar_wait(&k_empty[slot], parity);
-    mbar_expect_tx(&k_full[slot], 2 * BOX_BYTES);
-    tma_load(s_k + slot * 2 * BOX, &k_map, &k_full[slot],
-             steps.tile(k_next) * BK, bh);
-    ++k_next;
-    return true;
-  };
-  auto issue_v = [&](bool try_only) {
-    const int slot = v_next % VST, parity = ((v_next / VST) & 1) ^ 1;
-    if (try_only && !mbar_test(&v_empty[slot], parity)) return false;
-    mbar_wait(&v_empty[slot], parity);
-    mbar_expect_tx(&v_full[slot], 2 * BOX_BYTES);
-    tma_load(s_v + slot * 2 * BOX, &v_map, &v_full[slot],
-             steps.tile(first_pv + v_next) * BK, bh);
-    ++v_next;
-    return true;
-  };
-  auto issue_q = [&]() {
-    tma_prefetch(&q_map);
-    tma_prefetch(&k_map);
-    tma_prefetch(&v_map);
-    mbar_expect_tx(q_full, NWG * 2 * BOX_BYTES);
-    for (int w = 0; w < NWG; ++w)
-      tma_load(s_q + w * 2 * BOX, &q_map, q_full, q0 + 64 * w, bh);
-  };
-  // without a producer warp, thread 0 at the top of step `it`: k(it) and
-  // the v the step's PV product needs, then whatever the rings have room
-  // for, at most two steps ahead, without waiting
-  auto refill = [&](int it) {
-    while (k_next <= it && k_next < steps.count) issue_k(false);
-    while (v_next < n_tiles && first_pv + v_next < it) issue_v(false);
-    while (k_next < steps.count && k_next <= it + 2 && issue_k(true)) {
-    }
-    while (v_next < n_tiles && first_pv + v_next <= it + 1 && issue_v(true)) {
-    }
-  };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -572,23 +515,38 @@ attention_t5_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_init(&v_empty[i], 4 * NWG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (!PRODUCER_WARP) {
-      issue_q();
-      refill(0);
-    }
   }
   __syncthreads();
 
-  if (PRODUCER_WARP && warp == 4 * NWG) {
-    // ---- producer: q, then k(it) and the v of step it - 1, blocking on
-    // each slot's release in the order the consumers need them
+  if (warp == 4 * NWG) {
+    // ---- producer: q once, then k(it) for step it and the v of step
+    // it - 1, in the order the consumers need them, each into its ring
+    // slot once every consumer warp has released the slot's previous tile
     if (lane == 0) {
-      issue_q();
-      for (int it = 0; it < steps.count; ++it) {
-        issue_k(false);
-        if (it > 0 && steps.pv(it - 1)) issue_v(false);
+      tma_prefetch(&q_map);
+      tma_prefetch(&k_map);
+      tma_prefetch(&v_map);
+      mbar_expect_tx(q_full, NWG * 2 * BOX_BYTES);
+      for (int w = 0; w < NWG; ++w)
+        tma_load(s_q + w * 2 * BOX, &q_map, q_full, q0 + 64 * w, bh);
+      int v_next = 0;  // v tiles are counted in the order of the PV steps
+      for (int it = 0; it <= steps.count; ++it) {
+        if (it < steps.count) {
+          const int slot = it % KST;
+          mbar_wait(&k_empty[slot], ((it / KST) & 1) ^ 1);
+          mbar_expect_tx(&k_full[slot], 2 * BOX_BYTES);
+          tma_load(s_k + slot * 2 * BOX, &k_map, &k_full[slot],
+                   steps.tile(it) * BK, bh);
+        }
+        if (it > 0 && steps.pv(it - 1)) {
+          const int slot = v_next % VST;
+          mbar_wait(&v_empty[slot], ((v_next / VST) & 1) ^ 1);
+          mbar_expect_tx(&v_full[slot], 2 * BOX_BYTES);
+          tma_load(s_v + slot * 2 * BOX, &v_map, &v_full[slot],
+                   steps.tile(it - 1) * BK, bh);
+          ++v_next;
+        }
       }
-      issue_v(false);  // the last step's
     }
     return;
   }
@@ -641,7 +599,6 @@ attention_t5_kernel(const __grid_constant__ CUtensorMap q_map,
   mbar_wait(q_full, 0);
   for (int it = 0; it < steps.count; ++it) {
     const bool prev_pv = it > 0 && steps.pv(it - 1);
-    if (!PRODUCER_WARP && threadIdx.x == 0 && it > 0) refill(it);
     c.issue_qk(s, it);
     if (prev_pv) {
       c.issue_pv(it - 1);
@@ -659,7 +616,6 @@ attention_t5_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     if (steps.pv(it)) c.pack(s);
   }
-  if (!PRODUCER_WARP && threadIdx.x == 0) refill(steps.count);
   c.issue_pv(steps.count - 1);  // the last step is always a PV step
   wgmma_wait<0>();
   fence_regs(c.o);
@@ -706,7 +662,7 @@ int blocks_per_sm(int l) {
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, kernel, NWG * 128 + (NWG == 2 ? 32 : 0), smem) != cudaSuccess)
+          &blocks, kernel, NWG * 128 + 32, smem) != cudaSuccess)
     return -1;
   return blocks;
 }
@@ -727,7 +683,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((l + 64 * NWG - 1) / (64 * NWG), h_n, b_n);
-  kernel<<<grid, NWG * 128 + (NWG == 2 ? 32 : 0), smem, stream>>>(
+  kernel<<<grid, NWG * 128 + 32, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<const uint8_t*>(mask),
       static_cast<const float*>(table), static_cast<bf16*>(out), h_n, l);
   return (int)cudaGetLastError();

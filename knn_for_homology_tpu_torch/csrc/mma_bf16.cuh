@@ -1,4 +1,4 @@
-// bf16 tensor-core helpers for the encoder kernels (G, H, I):
+// bf16 tensor-core helpers for kernel G (csrc/ffn_fused.cu):
 // mma.sync.m16n8k16 with fp32 accumulators, and the fragment loads.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), g = lane / 4,
@@ -8,8 +8,6 @@
 //                         a[2] = A[g][2t+8..2t+9]   a[3] = A[g+8][2t+8..2t+9]
 //   B 16x8  (k x n):      b0 = B[2t..2t+1][g]       b1 = B[2t+8..2t+9][g]
 //   C 16x8  (fp32):       c[0..1] = C[g][2t..2t+1]  c[2..3] = C[g+8][2t..2t+1]
-// So a C tile's rows are known to the lane, which is what a row-wise
-// softmax needs, and two neighbouring C tiles of P give one A fragment.
 
 #pragma once
 
@@ -66,15 +64,6 @@ __device__ __forceinline__ void ld_b_kn(uint32_t& b0, uint32_t& b1,
   b1 = ld_two(p + 8 * ld, p + 9 * ld);
 }
 
-// B fragment of K^T from a row-major [n][k] tile (n = key, k = feature)
-__device__ __forceinline__ void ld_b_nk(uint32_t& b0, uint32_t& b1,
-                                        const bf16* tile, int ld, int g,
-                                        int t) {
-  const bf16* p = tile + g * ld + 2 * t;
-  b0 = ld_pair(p);
-  b1 = ld_pair(p + 8);
-}
-
 // cooperative copy of a [ROWS][COLS] bf16 tile by NTHREADS threads, 16
 // bytes per thread step, every load issued before the first store; both
 // row pitches keep 16-byte alignment. Rows at or past `valid` are zeros.
@@ -100,16 +89,6 @@ __device__ __forceinline__ void copy_tile(bf16* dst, int ld_dst,
     const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
     *reinterpret_cast<uint4*>(dst + r * ld_dst + c) = v[s];
   }
-}
-
-__device__ __forceinline__ float group_max(float v) {  // over the 4 lanes of g
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float group_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 }  // namespace knn_mma

@@ -17,15 +17,17 @@
 // a call) and kept a [64, L] fp32 score tile in shared memory (one block
 // per SM).
 //
-// Design: attention_t5.cuh with one consumer warpgroup (64 queries) per
-// block, whose thread 0 also issues the TMA copies: 128 threads, ~100 KB
-// of shared memory (q, a 3-slot k ring, a 2-slot v ring, the table
-// window), so two blocks fit per SM (the CUDA occupancy query,
-// knn_short_t5_blocks_per_sm). The softmax is exact in two sweeps: sweep 1
-// streams k for the row max and sum (online), sweep 2 recomputes q.k,
-// normalises p before the bf16 cast and sums p.v on wgmma. The second q.k
-// costs 1.5x the products' flop. ptxas (sm_90a): 163 registers, no
-// spills, wgmma not serialised.
+// Design: attention_t5.cuh with one consumer warpgroup (64 queries) and a
+// producer warp per block (TMA copies of q, k and v), ~100 KB of shared
+// memory (q, a 3-slot k ring, a 2-slot v ring, the table window) and at
+// most 128 registers a thread, so two blocks fit per SM (the CUDA
+// occupancy query, knn_short_t5_blocks_per_sm). The softmax is exact in
+// two sweeps: sweep 1 streams k for the row max and sum (online), sweep 2
+// recomputes q.k, normalises p before the bf16 cast and sums p.v on wgmma.
+// The second q.k costs 1.5x the products' flop. ptxas (sm_90a, CUDA 12.8):
+// 128 registers (the cap), 96 bytes of spill stores and 144 of spill
+// loads, and the wgmma serialised for want of registers (C7512); a
+// 168-register block of one warpgroup would fit only once per SM.
 
 #include "attention_t5.cuh"
 

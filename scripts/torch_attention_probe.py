@@ -7,8 +7,8 @@ scaled_dot_product_attention at the encoder's shapes.
     python3 scripts/torch_attention_probe.py [--no-ptxas] [--no-times]
 
 Checks use chip_smoke.py's BF16_TOL (2^-6 of the plain version's largest
-value); times are the median of 5 windows of 10 calls (CUDA events, one
-warm-up). Exits non-zero on any mismatch.
+value); times are chip_smoke.py's cuda_ms, the median of 5 windows of 10
+calls (CUDA events, one warm-up). Exits non-zero on any mismatch.
 """
 
 import argparse
@@ -20,7 +20,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-BF16_TOL = 2.0**-6
+from chip_smoke import BF16_TOL, cuda_ms  # noqa: E402
+
 H_SHAPES = [(1, 2, 1), (2, 3, 65), (3, 2, 127), (2, 2, 129), (2, 2, 1025),
             (2, 32, 3200)]
 I_SHAPES = [(1, 2, 1), (2, 3, 63), (2, 2, 64), (3, 2, 65), (2, 2, 127),
@@ -57,24 +58,6 @@ def ptxas_report():
                               kernel)
                 print(f"ptxas {kernel}:", line.strip(), flush=True)
         assert proc.returncode == 0, out
-
-
-def median_ms(fn, windows=5, reps=10):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return sorted(times)[len(times) // 2]
 
 
 def device_ms(fn, reps=10):
@@ -190,10 +173,10 @@ def main():
             dense = table[:, pos[None, :] - pos[:, None] + l - 1]
             attn = (dense[None] + torch.where(mask, 0.0, -1e9)[:, None, None, :]
                     ).to(torch.bfloat16)
-            ms = median_ms(lambda: fn(q, k, v, mask, table))
-            sdpa = median_ms(lambda: F.scaled_dot_product_attention(
+            ms = cuda_ms(lambda: fn(q, k, v, mask, table))
+            sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn, scale=1.0))
-            ms2 = median_ms(lambda: fn(q, k, v, mask, table))
+            ms2 = cuda_ms(lambda: fn(q, k, v, mask, table))
             dev = device_ms(lambda: fn(q, k, v, mask, table))
             sdpa_dev = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn, scale=1.0))
