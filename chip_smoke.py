@@ -47,12 +47,15 @@ d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
 
 Phase 3 also holds the encoder's kernels at full width: G at 7000 tokens x
 1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128 and
-27 x 32 x 256 x 128 (H and I fed the [H, 2L-1] offset-bias table), with
-scaled_dot_product_attention timed beside H and I as the library
-yardstick; and the IVF path's kernels: J at 1024 queries x 256 cells
-(32768 rows) x 1024, k = 1000 (sym and sym2, buffers bit-equal), K at 4096
-queries x 32 probes x 128 x 1024. Every kernel's line carries its bound: the least time the card
-could take, from its operations and bytes (PEAK_OPS, HBM_BYTES_PER_S).
+27 x 32 x 256 x 128 (H and I fed the [H, 2L-1] offset-bias table); and the
+IVF path's kernels: J at 1024 queries x 256 cells (32768 rows) x 1024, k =
+1000 (sym and sym2, buffers bit-equal), K at 4096 queries x 32 probes x
+128 x 1024. Library yardsticks, which the port never calls: for G, its two
+products as two bf16 torch.matmul calls (with the relu between them); for
+H and I, scaled_dot_product_attention; for F and J, torch._int_mm on the
+same int8 operands (the product only: no scales, no top-R slots). Every
+kernel's line carries its bound: the least time the card could take, from
+its operations and bytes (PEAK_OPS, HBM_BYTES_PER_S).
 Times are medians of five timed windows (cuda_ms), after a two-second
 warm-up of the card.
 
@@ -408,11 +411,18 @@ def check_packed_kernels(db, q, kernels):
             f" R={r_f}]: buffers bit-equal, {f_times[storage][0]:.3f} ms vs"
             f" plain {f_times[storage][1]:.3f} ms")
     ms, plain_ms = f_times["sq8-sym"]
+    # the yardstick, product only: the int8 [Q, N] dots as one
+    # torch._int_mm call (no scales, no packed slots)
+    q8, _, _ = pc.quantize_queries(q, False)
+    db_t = pq.db_i8.t()
+    lib_ms = cuda_ms(lambda: torch._int_mm(q8, db_t))
+    log(f"phase 3 kernel F: torch._int_mm {line}] (product only)"
+        f" {lib_ms:.3f} ms")
     kernels["F"] = dict(
         name="segment_packed_sq8sym", route="cuda",
         source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
         replaces="knn_for_homology_tpu/ops/exact_pallas.py:266",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         **f_bound,
     )
 
@@ -512,15 +522,24 @@ def check_encoder_kernels(kernels, seed):
     err = check_bf16("G", got, fused_ffn_plain(*g_args))
     ms = cuda_ms(lambda: ffn_cuda.fused_ffn_t5(*g_args))
     plain_ms = cuda_ms(lambda: fused_ffn_plain(*g_args))
+    # the yardstick: G's two products as two bf16 torch.matmul calls (and
+    # the relu between them) on the normalised rows, the norm not timed
+    x, ln, wi, wo = g_args
+    x32 = x.float()
+    normed = (x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-6)
+              ).to(x.dtype) * ln
+    lib_ms = cuda_ms(lambda: torch.matmul(torch.matmul(normed, wi).relu_(), wo))
+    del x32, normed
     kernels["G"] = dict(
         name="ffn_fused", route="cuda",
         source="knn_for_homology_tpu_torch/csrc/ffn_fused.cu",
         replaces="knn_for_homology_tpu/ops/ffn_pallas.py:30",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         **bound(4 * t_n * d * f, "bf16", tensor_bytes(*g_args, got)),
     )
     log(f"phase 3 kernel G ffn_fused [T={t_n}, D={d}, F={f}]: max_abs_err"
-        f" {err:.3g}, {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound"
+        f" {err:.3g}, {ms:.3f} ms vs plain {plain_ms:.3f} ms, two bf16"
+        f" torch.matmul calls {lib_ms:.3f} ms, bound"
         f" {kernels['G']['bound_ms']:.3f} ms ({kernels['G']['bound_by']})")
 
     rel = randn(cfg.rel_buckets, cfg.num_heads, scale=0.1)
@@ -631,11 +650,21 @@ def check_ivf_kernels(db, q_all, kernels, seed):
             f" k={BENCH_K}, W={tile}, R={r}]: buffers bit-equal,"
             f" {times[compute][0]:.3f} ms vs plain {times[compute][1]:.3f} ms")
     ms, plain_ms = times["sym"]
+    # the yardstick, product only: the int8 dots against the union's rows,
+    # gathered outside the timing, as one torch._int_mm call
+    q8, _, _ = packed_cuda.quantize_queries(q, False)
+    rows_t = pv.view(IVF_CELLS, 128, -1)[cells.long()].reshape(
+        J_BUDGET * 128, -1).t()
+    lib_ms = cuda_ms(lambda: torch._int_mm(q8, rows_t))
+    del rows_t
+    log(f"phase 3 kernel J: torch._int_mm [{J_QUERIES} x {J_BUDGET * 128}"
+        f" x {q.shape[1]}] (product only) {lib_ms:.3f} ms")
     kernels["J"] = dict(
         name="ivf_indirect", route="cuda",
         source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
         replaces="knn_for_homology_tpu/ops/ivf_pallas.py:55",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **j_bound,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **j_bound,
     )
 
     # K: 4096 queries x 32 probes of 128 rows
@@ -902,8 +931,9 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
-# H and I are two instantiations of csrc/attention_t5.cuh's kernel
-ENCODER_KERNELS = (("G ffn_fused", ("ffn_fused",)),
+# G runs three CUDA kernels of csrc/ffn_fused.cu (the row norm and two
+# GEMMs); H and I are two instantiations of csrc/attention_t5.cuh's kernel
+ENCODER_KERNELS = (("G ffn_fused", ("::rms_norm_kernel<", "::gemm_kernel<")),
                    ("H flash_t5", ("attention_t5_kernel<2",)),
                    ("I short_t5", ("attention_t5_kernel<1",)))
 
@@ -1020,6 +1050,8 @@ def run_encoder(kernels, seed):
         f" {len(seqs)} proteins, {residues} residues, {len(batches)} batches,"
         f" {tokens} padded tokens | embed {embed_s:.3f} s ({residues / embed_s:.0f}"
         f" residues/s), embed + search {wall:.3f} s | peak {peak / 2**30:.2f} GiB"
+        f" (G's h scratch at the token budget:"
+        f" {TOKEN_BUDGET * config.d_ff * 2 / 2**30:.2f} GiB)"
         f" | top-{HITS} same-family share {family_hits:.4f} | launches {launches}")
 
     # the opt-in short route: kernel I

@@ -50,7 +50,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace knn_attn {
+
+using namespace knn_sm90;  // mbarriers, TMA, wgmma fences and descriptors
 
 using bf16 = __nv_bfloat16;
 
@@ -62,44 +66,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG2 = -1e9f * LOG2E;    // the -1e9 fill, in exp2's scale
 
 // ------------------------------------------------------------ PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a wait of 2^30
-// polls (seconds) traps, so a lost arrival fails the launch, not hangs it.
-// The barrier's shared-memory address as 32 bits (one register, not two).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done, polls = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (++polls == (1u << 30)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  mbar_wait(smem_u32(bar), parity);
-}
-
 __device__ __forceinline__ float lds_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
@@ -122,38 +88,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(0), "r"(bh)
       : "memory");
-}
-
-__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n"
-               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups are pending (groups finish in order)
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from touching accumulators across the async window
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; byte offsets
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64], both K-major in shared memory

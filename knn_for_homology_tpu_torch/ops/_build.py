@@ -2,9 +2,9 @@
 
 Every `csrc/*.cu` compiles in its own nvcc process, all started together,
 and one more nvcc call links the objects into a shared library with a plain
-C interface (no PyTorch headers: seconds instead of minutes), against the
-driver library (`-lcuda`, for the attention kernels' TMA maps; the
-toolkit's stub at link time, the driver's libcuda.so.1 at load time). The library
+C interface (no PyTorch headers: seconds instead of minutes), against
+libcuda (`-lcuda`, for the TMA maps of kernels F, G, H, I and J; the
+toolkit's stub at link time, the installed libcuda.so.1 at load time). The library
 lands in `build/torch_kernels/` at the repository root (git-ignored),
 named by a hash of the sources and flags (taken once per process), so an
 edited kernel rebuilds in the next process and an unchanged one loads from
@@ -45,18 +45,18 @@ SIGNATURES = {
     "knn_segment_packed": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
-    # q, q_lo, pv, scales, ids, cells, buf, q_n, budget, d, w, r, jbits,
-    # two_level, stream
+    # q, q_lo, pv, scales, ids, cells, buf, q_n, budget, table_rows, d, w,
+    # r, jbits, two_level, stream
     "knn_ivf_indirect": [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     # sel, q, pv, pi, sc, sims, nbrs, q_n, e, d, deg_p, n_nodes, stream
     "knn_slab_expand": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, t_jk, blosum, state, out, g, lq, lt, k, segments, gap_first,
     # gap_ext, stream
     "knn_sw_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, ln, wi, wo, out, t, d, f, eps, stream
-    "knn_ffn_fused": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, ln, wi, wo, normed, h, out, t, d, f, eps, stream
+    "knn_ffn_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # q, k, v, mask, table, out, b, h, l, stream
     "knn_flash_t5": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, mask, table, out, b, h, l, stream

@@ -137,7 +137,9 @@ def plan_align_cells(
     row_lanes = [[(lane_seq, qi, pos), ...] per lane]; see align_hits'
     docstring for the flip-grouping and ragged-packing rules. Copied from
     the reference planner, constants included, so both packages plan the
-    same cells (tests/test_torch_align.py holds them equal).
+    same cells (tests/test_torch_align.py holds them equal), but for one
+    repair: a ragged row whose fullest lane holds 33-63 targets plans
+    s_b = MAX_SEGMENTS, where the reference's 64 cannot run.
     """
 
     def pad_len(x):
@@ -234,7 +236,11 @@ def plan_align_cells(
             for start in range(0, len(packed), k_lanes):
                 row_lanes = packed[start : start + k_lanes]
                 s_max = max(len(ln) for ln in row_lanes)
-                s_b = 1 << (s_max - 1).bit_length() if s_max > 1 else 1
+                # the power of two, capped at MAX_SEGMENTS (the packer's
+                # lane limit, so the row still fits): the reference plans
+                # 64 for 33-63 targets, which its kernel and kernel C refuse
+                s_b = min(1 << (s_max - 1).bit_length(), MAX_SEGMENTS) \
+                    if s_max > 1 else 1
                 cells.setdefault((lq_b, cap, s_b), []).append(
                     (row_seq, row_lanes)
                 )

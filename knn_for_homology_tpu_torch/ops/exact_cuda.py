@@ -35,10 +35,12 @@ INT32_MIN = -(2**31)
 # per query block; the epilogue's int64 sort keys add as much again.
 CANDIDATE_BYTES = 1 << 30
 
-# queries per CUDA block of kernel B (csrc/segment_topr.cu: BM) and of
-# kernels D/E/F at every R (csrc/segment_packed.cu: route, BM = 16 * TM)
+# queries per CUDA block of kernel B (csrc/segment_topr.cu: BM), of
+# kernels D/E at every R (csrc/segment_packed.cu: BM = 16 * TM) and of the
+# sym storages' kernel F (one wgmma warpgroup, sym::BM)
 SEGMENT_TOPR_QUERIES = 32
 SEGMENT_PACKED_QUERIES = 32
+SYM_PACKED_QUERIES = 64
 
 
 def _ordered_int(u: torch.Tensor) -> torch.Tensor:
@@ -137,6 +139,7 @@ def plan_fingerprint(
     return {
         "db_tile": db_tile,
         "query_block": SEGMENT_TOPR_QUERIES if exact
+        else SYM_PACKED_QUERIES if storage in ("sq8-sym", "sq8-sym2")
         else SEGMENT_PACKED_QUERIES,
         "r_slots": r_slots,
         "storage": storage,

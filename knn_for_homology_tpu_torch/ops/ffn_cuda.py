@@ -3,6 +3,10 @@
 Port of knn_for_homology_tpu/ops/ffn_pallas.py:_ffn_kernel (entry
 fused_ffn_t5). A CUDA tensor goes to the kernel; a CPU tensor to
 ops/ffn.py:fused_ffn_plain. The kernel takes bf16 (the model dtype) only.
+On the card one call runs three CUDA kernels (the row norm and two wgmma
+GEMMs) through two scratch tensors allocated here: normed [T, D] and the
+intermediate h [T, F] in bf16 (229 MB at T = 7000, F = 16384). The launch
+count is one per call.
 """
 
 import torch
@@ -11,7 +15,7 @@ from . import _build
 from .ffn import fused_ffn_plain
 
 KERNEL_D = (128, 256, 512, 1024)  # d_model values the kernel is built for
-F_SLICE = 128  # d_ff must be a multiple of the kernel's slice
+F_SLICE = 128  # d_ff must be a multiple of the GEMMs' narrowest N tile
 
 
 def fused_ffn_t5(
@@ -47,9 +51,12 @@ def fused_ffn_t5(
     out = torch.empty_like(x)
     if t == 0:
         return out
+    normed = torch.empty_like(x)
+    h = torch.empty((t, f), dtype=x.dtype, device=x.device)
     code = _build.library().knn_ffn_fused(
         x.data_ptr(), ln_scale.data_ptr(), wi.data_ptr(), wo.data_ptr(),
-        out.data_ptr(), t, d, f, float(eps), _build.stream_ptr(x.device),
+        normed.data_ptr(), h.data_ptr(), out.data_ptr(), t, d, f, float(eps),
+        _build.stream_ptr(x.device),
     )
     _build.check(code, "knn_ffn_fused")
     fused_ffn_t5.launches += 1

@@ -103,6 +103,9 @@ def segment_packed_indirect_kernel(
         return segment_packed_indirect_plain(q8, pv, sc, pi, cells, tile,
                                              r_slots, q_lo)
     q_n, d = q8.shape
+    if d % 16:
+        raise ValueError(f"kernel J reads rows of whole 16 bytes; d = {d}"
+                         " (the slab table pads rows to 128)")
     budget = cells.shape[0]
     q8 = q8.contiguous()
     q_lo = None if q_lo is None else q_lo.contiguous()
@@ -113,7 +116,7 @@ def segment_packed_indirect_kernel(
     code = _build.library().knn_ivf_indirect(
         q8.data_ptr(), None if q_lo is None else q_lo.data_ptr(),
         pv.data_ptr(), sc.data_ptr(), pi.data_ptr(), cells.data_ptr(),
-        buf.data_ptr(), q_n, budget, d, tile, r_slots,
+        buf.data_ptr(), q_n, budget, pv.shape[0], d, tile, r_slots,
         pass_bits(budget * LANE, tile), int(q_lo is not None),
         _build.stream_ptr(pv.device),
     )

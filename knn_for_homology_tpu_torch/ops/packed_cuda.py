@@ -224,9 +224,10 @@ def segment_packed_kernel(
         )
     n, d = db.shape
     q_n = queries.shape[0]
-    if storage in SYM_STORAGES and d % 4:
-        # the int8 kernel reads rows as 4-byte words; zero columns add 0
-        pad = (0, 4 - d % 4)
+    if storage in SYM_STORAGES and d % 16:
+        # the int8 kernel's TMA reads rows of whole 16 bytes; zero columns
+        # add 0
+        pad = (0, -d % 16)
         queries, db = (torch.nn.functional.pad(t, pad) for t in (queries, db))
         q_lo = None if q_lo is None else torch.nn.functional.pad(q_lo, pad)
         d = db.shape[1]

@@ -125,6 +125,42 @@ def test_planners_emit_identical_cells(ragged):
         assert any(s_b > 1 for (_, _, s_b) in got)
 
 
+def _crowded_lane_pairs(seed=5):
+    """One 300-aa row with 300 two-residue hits: ragged packing puts 42
+    targets (3 residues each with the separator) into a 128-residue lane."""
+    rng = np.random.RandomState(seed)
+    seq = lambda n: "".join(rng.choice(list(AAS), n))  # noqa: E731
+    return [seq(300), seq(60)], [[seq(2) for _ in range(300)], [seq(50)]]
+
+
+def test_crowded_lane_plans_at_most_63_segments(monkeypatch):
+    # the reference rounds 33-63 targets up to 64 segments, which no
+    # kernel takes; the port caps the row at MAX_SEGMENTS and otherwise
+    # plans as the reference does
+    queries, hits = _crowded_lane_pairs()
+    want = jalign.plan_align_cells(queries, hits)
+    got = talign.plan_align_cells(queries, hits)
+    fullest = max(len(lane) for cells in got.values() for _, lanes in cells
+                  for lane in lanes)
+    assert 33 <= fullest <= talign.MAX_SEGMENTS
+    assert {key[2] for key in want} == {1, 64}
+    assert {key[2] for key in got} == {1, talign.MAX_SEGMENTS}
+    assert {k: v for k, v in got.items() if k[2] == 1} == {
+        k: v for k, v in want.items() if k[2] == 1}
+    assert [v for k, v in got.items() if k[2] > 1] == [
+        v for k, v in want.items() if k[2] > 1]
+
+    ragged_s, ragged_e = talign.align_hits(queries, hits, device="cpu")
+    plan = talign.plan_align_cells
+    monkeypatch.setattr(talign, "plan_align_cells",
+                        lambda *a, **kw: plan(*a, **kw, ragged=False))
+    classic_s, classic_e = talign.align_hits(queries, hits, device="cpu")
+    assert (ragged_s[0] > 0).mean() > 0.5
+    for rs, cs, re_, ce in zip(ragged_s, classic_s, ragged_e, classic_e):
+        np.testing.assert_array_equal(rs, cs)
+        np.testing.assert_array_equal(re_, ce)
+
+
 def test_align_hits_matches_jax():
     # short sequences keep every cell at the 128 bucket: two dispatch
     # blocks (one classic, one ragged) in the JAX interpret run

@@ -62,14 +62,29 @@ def _ffn_inputs(seed, t, d, f, device):
     )
 
 
+# the ragged edges of G's GEMM tiles: T around the 64-row warpgroup and
+# 128-row block tiles; D 128 and 256 (narrower than a 256-wide N tile);
+# F = 384, a multiple of 128 but not of the 256-wide N tile
+G_EDGES = [(t, d, 384) for t in (1, 63, 64, 65, 127, 129)
+           for d in (128, 256, 1024)]
+
+
 @pytest.mark.parametrize("t,d,f", [(1, 128, 256), (37, 256, 384),
-                                   (300, 1024, 512), (7000, 1024, 16384)])
+                                   (300, 1024, 512), (7000, 1024, 16384),
+                                   (7000, 128, 384)] + G_EDGES)
 def test_kernel_g_matches_plain(cuda, t, d, f):
     x, ln, wi, wo = _ffn_inputs(0, t, d, f, cuda)
     before = ffn_cuda.fused_ffn_t5.launches
     got = ffn_cuda.fused_ffn_t5(x, ln, wi, wo)
     assert ffn_cuda.fused_ffn_t5.launches == before + 1
     assert_bf16_close(got, fused_ffn_plain(x, ln, wi, wo))
+
+
+def test_kernel_g_repeats_bit_for_bit(cuda):
+    # every block sums its whole K in one fixed order (no split-K atomics)
+    x, ln, wi, wo = _ffn_inputs(5, 1000, 1024, 4096, cuda)
+    first = ffn_cuda.fused_ffn_t5(x, ln, wi, wo)
+    assert torch.equal(first, ffn_cuda.fused_ffn_t5(x, ln, wi, wo))
 
 
 def test_kernel_g_refuses_fp32(cuda):

@@ -111,7 +111,7 @@ def test_exact_topk_ids_equal_full_sort(cuda, k, kw):
     torch.testing.assert_close(vals, want[0], rtol=0, atol=0)
 
 
-def _sw_workload(seed, g, k, lq, lt, ragged):
+def _sw_workload(seed, g, k, lq, lt, ragged, min_tl=5, max_tl=60):
     rng = np.random.RandomState(seed)
     qs = [
         "".join(rng.choice(list(AAS), rng.randint(10, lq))) for _ in range(g)
@@ -122,7 +122,7 @@ def _sw_workload(seed, g, k, lq, lt, ragged):
         for ki in range(k):
             pos = 0
             while True:
-                tl = int(rng.randint(5, lt if not ragged else 60))
+                tl = int(rng.randint(min_tl, lt if not ragged else max_tl))
                 if pos + tl > lt:
                     break
                 s = "".join(rng.choice(list(AAS), tl))
@@ -134,9 +134,16 @@ def _sw_workload(seed, g, k, lq, lt, ragged):
 
 
 @pytest.mark.parametrize("convention", ["blast", "mmseqs"])
-@pytest.mark.parametrize("segments", [1, 4])
+@pytest.mark.parametrize("segments", [1, 4, 63])
 def test_sw_kernel_bit_equal_to_plain(cuda, convention, segments):
-    q, t = _sw_workload(5, g=5, k=160, lq=90, lt=200, ragged=segments > 1)
+    # segments = 63, the planner's cap: 2-4 residue targets fill a
+    # 190-column lane with up to 63 of them
+    if segments == 63:
+        q, t = _sw_workload(5, g=5, k=160, lq=90, lt=190, ragged=True,
+                            min_tl=2, max_tl=5)
+        assert ((t[..., :-1] >= 0) & (t[..., 1:] < 0)).sum(-1).max() >= 33
+    else:
+        q, t = _sw_workload(5, g=5, k=160, lq=90, lt=200, ragged=segments > 1)
     q[1, 20] = -1  # interior query pad row: gaps still run through it
     if segments == 1:
         t[2, :, 30] = -1  # interior target pad column
@@ -200,12 +207,33 @@ def test_packed_kernels_bit_equal_on_integer_data(cuda, storage, metric, d):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("q_n", [1, 63, 65, 2200])
+@pytest.mark.parametrize("storage,r_slots,d", [
+    ("sq8-sym", 7, 48), ("sq8-sym2", 9, 48), ("sq8-sym2", 30, 48),
+    ("sq8-sym2", 7, 2048)])
+def test_packed_sym_tile_edges(cuda, storage, r_slots, d, q_n):
+    # kernel F's 64-query tiles at one query, the edges of a tile and 2200
+    # queries (35 query tiles); the routes: query rows resident with
+    # 32-lane tiles (R = 7, 9) or 16-lane tiles (R = 30); d = 2048 streams
+    # the query rows with 64-lane tiles
+    ops = _packed_operands(14, storage, 5000, q_n, d, cuda)
+    got = packed_cuda.segment_packed_kernel(
+        db_tile=256, r_slots=r_slots, metric="ip", **ops
+    )
+    want = packed_cuda.segment_packed_plain(
+        db_tile=256, r_slots=r_slots, metric="ip", **ops
+    )
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("r_slots", [25, 26, 35, 130])
 @pytest.mark.parametrize("storage", ["f32", "sq8-sym2"])
 def test_packed_large_r_routes(cuda, storage, r_slots):
-    # R = 25: the largest R whose slots fit shared memory; R ≥ 26: slots in
-    # the output buffer (R = 130: more slots than passes, so empty ones
-    # stay INT32_MIN)
+    # f32 (kernel D): R = 25 is the largest R whose slots fit shared
+    # memory; R ≥ 26: slots in the output buffer (R = 130: more slots than
+    # passes, so empty ones stay INT32_MIN); sym2 (kernel F): 16-lane tiles
+    # with resident query rows at R = 25 and 26, slots in device memory
+    # from R = 35
     ops = _packed_operands(7, storage, 30000, 40, 24, cuda)
     got = packed_cuda.segment_packed_kernel(
         db_tile=256, r_slots=r_slots, metric="ip", **ops
@@ -275,16 +303,21 @@ def _slab_table(seed, c, d, fill, device, deg_p=128, degree=None):
 
 
 @pytest.mark.parametrize(
-    "budget,r_slots,two_level",
-    [(256, 5, False), (256, 5, True), (4, 3, True), (16, 30, True)],
+    "budget,r_slots,two_level,q_n",
+    [(256, 5, False, 70), (256, 5, True, 70), (4, 3, True, 70),
+     (16, 30, True, 70), (2, 4, True, 1), (8, 4, False, 63),
+     (32, 5, True, 65), (256, 4, True, 600), (64, 4, False, 600)],
 )
-def test_kernel_j_bit_equal_to_plain(cuda, budget, r_slots, two_level):
+def test_kernel_j_bit_equal_to_plain(cuda, budget, r_slots, two_level, q_n):
     # budget < 8 narrows the tile (W = budget·128); R = 30 puts the slots
-    # in device memory
+    # in device memory; 1, 63 and 65 queries sit at the 64-query tile's
+    # edges; at 600 queries the lane tiles are 64 wide (enough blocks to
+    # fill the card), else 32; every pass moves each lane tile to another
+    # cell of the table
     db, (pv, pi, sc), rng = _slab_table(10, 300, 96, 90, cuda)
     cells = torch.from_numpy(
         rng.choice(300, budget, replace=False).astype(np.int32)).to(cuda)
-    q = torch.nn.functional.pad(db[:70], (0, 32))
+    q = torch.nn.functional.pad(db[:q_n], (0, 32))
     q8, q_lo, _ = packed_cuda.quantize_queries(q, two_level)
     tile = min(8, budget) * 128
     before = ivf_cuda.segment_packed_indirect_kernel.launches

@@ -113,7 +113,10 @@ def test_plan_matches_jax(target):
                 assert got["db_tile"] == want["db_tile"], key
                 assert got["r_slots"] == want["r_slots"], key
                 assert got["storage"] == storage
-                assert got["query_block"] == exact_cuda.SEGMENT_PACKED_QUERIES
+                assert got["query_block"] == (
+                    exact_cuda.SYM_PACKED_QUERIES
+                    if storage in ("sq8-sym", "sq8-sym2")
+                    else exact_cuda.SEGMENT_PACKED_QUERIES)
     for k in (5, 1000):
         want = jexact.plan_fingerprint(131072, 1024, k, exact=True)
         got = exact_cuda.plan_fingerprint(131072, 1024, k, exact=True)
