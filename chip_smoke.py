@@ -53,8 +53,10 @@ IVF path's kernels: J at 1024 queries x 256 cells (32768 rows) x 1024, k =
 128 x 1024. Library yardsticks, which the port never calls: for G, its two
 products as two bf16 torch.matmul calls (with the relu between them); for
 H and I, scaled_dot_product_attention; for F and J, torch._int_mm on the
-same int8 operands (the product only: no scales, no top-R slots). Every
-kernel's line carries its bound: the least time the card could take, from
+same int8 operands (the product only: no scales, no top-R slots). Each
+kernel's entry names its yardstick under "library" (null where there is
+none), since for G, F and J it is not one call computing the same
+function. Every kernel's line carries its bound: the least time the card could take, from
 its operations and bytes (PEAK_OPS, HBM_BYTES_PER_S).
 Times are medians of five timed windows (cuda_ms), after a two-second
 warm-up of the card.
@@ -350,6 +352,7 @@ def check_packed_kernels(db, q, kernels):
         source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
         replaces="knn_for_homology_tpu/ops/exact_pallas.py:199",
         max_abs_err=d_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        library=None,
         **d_bound,
     )
 
@@ -390,6 +393,7 @@ def check_packed_kernels(db, q, kernels):
         source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
         replaces="knn_for_homology_tpu/ops/exact_pallas.py:219",
         max_abs_err=e_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        library=None,
         **e_bound,
     )
 
@@ -423,6 +427,7 @@ def check_packed_kernels(db, q, kernels):
         source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
         replaces="knn_for_homology_tpu/ops/exact_pallas.py:266",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library="torch._int_mm of the int8 operands, product only",
         **f_bound,
     )
 
@@ -535,6 +540,7 @@ def check_encoder_kernels(kernels, seed):
         source="knn_for_homology_tpu_torch/csrc/ffn_fused.cu",
         replaces="knn_for_homology_tpu/ops/ffn_pallas.py:30",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library="two bf16 torch.matmul calls (relu between), norm not timed",
         **bound(4 * t_n * d * f, "bf16", tensor_bytes(*g_args, got)),
     )
     log(f"phase 3 kernel G ffn_fused [T={t_n}, D={d}, F={f}]: max_abs_err"
@@ -559,6 +565,7 @@ def check_encoder_kernels(kernels, seed):
         del attn
         ops = 4 * b * cfg.num_heads * l * l * cfg.d_kv
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    library="scaled_dot_product_attention",
                     **bound(ops, "bf16", tensor_bytes(q, k, v, mask, bias, got)))
 
     def dense_from_table(table, l):
@@ -664,6 +671,7 @@ def check_ivf_kernels(db, q_all, kernels, seed):
         source="knn_for_homology_tpu_torch/csrc/segment_packed.cu",
         replaces="knn_for_homology_tpu/ops/ivf_pallas.py:55",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library="torch._int_mm of the gathered int8 rows, product only",
         **j_bound,
     )
 
@@ -691,6 +699,7 @@ def check_ivf_kernels(db, q_all, kernels, seed):
         source="knn_for_homology_tpu_torch/csrc/slab_expand.cu",
         replaces="knn_for_homology_tpu/ops/graph_pallas.py:139",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        library=None,
         **bound(2 * K_QUERIES * K_PROBES * 128 * d, "fp32",
                 tensor_bytes(sel, qk, got_s, got_n)
                 + touched * 128 * (d + 8)),
@@ -1169,6 +1178,7 @@ def main() -> None:
             source="knn_for_homology_tpu_torch/csrc/flat_topk.cu",
             replaces="knn_for_homology_tpu/ops/flat_pallas.py:51",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            library=None,
             **bound(2 * q.shape[0] * N_TRAIN * DIM, "fp32",
                     tensor_bytes(db, q, *got)),
         )
@@ -1197,6 +1207,7 @@ def main() -> None:
             replaces="knn_for_homology_tpu/ops/exact_pallas.py:126",
             max_abs_err=max(err, err_r), ms=ms, plain_ms=plain_ms,
             library_ms=None,
+            library=None,
             **bound(2 * q.shape[0] * N_TRAIN * DIM, "fp32",
                     tensor_bytes(db, q, *bufs)),
         )
@@ -1271,6 +1282,7 @@ def main() -> None:
             source="knn_for_homology_tpu_torch/csrc/sw_grouped.cu",
             replaces="knn_for_homology_tpu/ops/align_pallas.py:179",
             max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, library_ms=None,
+            library=None,
             **bound(c_ops, "fp32", c_bytes),
         )
 

@@ -51,14 +51,6 @@ constexpr int BM = 128;               // rows per block: two warpgroups
 constexpr int BK = 64;                // k per stage: one 128-byte row
 constexpr int THREADS = 2 * 128 + 32;  // consumers + the producer warp
 constexpr int A_BYTES = BM * BK * 2;  // 16 KB
-// the widest N tile (256, or 128 to compare the two on the card), and
-// persistent blocks (1; 0 gives each tile its own block, to compare)
-#ifndef KNN_FFN_BN
-#define KNN_FFN_BN 256
-#endif
-#ifndef KNN_FFN_PERSISTENT
-#define KNN_FFN_PERSISTENT 1
-#endif
 
 template <int BN>
 struct Gemm {
@@ -298,7 +290,7 @@ cudaError_t gemm(const bf16* a, const bf16* b, const bf16* x, bf16* out,
       return cudaErrorInvalidValue;
   }
   const int tiles = ((n + BN - 1) / BN) * ((m + BM - 1) / BM);
-  const int grid = KNN_FFN_PERSISTENT && tiles > sms ? sms : tiles;
+  const int grid = tiles > sms ? sms : tiles;
   kernel<<<grid, THREADS, smem, stream>>>(a_map, b_map, x, out, m, n, k);
   return cudaGetLastError();
 }
@@ -307,7 +299,7 @@ cudaError_t gemm(const bf16* a, const bf16* b, const bf16* x, bf16* out,
 template <bool RESIDUAL>
 cudaError_t gemm_any(const bf16* a, const bf16* b, const bf16* x, bf16* out,
                      int m, int n, int k, cudaStream_t stream) {
-  if (KNN_FFN_BN == 256 && n >= 256)
+  if (n >= 256)
     return gemm<256, RESIDUAL>(a, b, x, out, m, n, k, stream);
   return gemm<128, RESIDUAL>(a, b, x, out, m, n, k, stream);
 }

@@ -302,22 +302,14 @@ def _slab_table(seed, c, d, fill, device, deg_p=128, degree=None):
     return db.to(device), tuple(t.to(device) for t in packed), rng
 
 
-@pytest.mark.parametrize(
-    "budget,r_slots,two_level,q_n",
-    [(256, 5, False, 70), (256, 5, True, 70), (4, 3, True, 70),
-     (16, 30, True, 70), (2, 4, True, 1), (8, 4, False, 63),
-     (32, 5, True, 65), (256, 4, True, 600), (64, 4, False, 600)],
-)
-def test_kernel_j_bit_equal_to_plain(cuda, budget, r_slots, two_level, q_n):
-    # budget < 8 narrows the tile (W = budget·128); R = 30 puts the slots
-    # in device memory; 1, 63 and 65 queries sit at the 64-query tile's
-    # edges; at 600 queries the lane tiles are 64 wide (enough blocks to
-    # fill the card), else 32; every pass moves each lane tile to another
-    # cell of the table
-    db, (pv, pi, sc), rng = _slab_table(10, 300, 96, 90, cuda)
+def _check_kernel_j(device, budget, r_slots, two_level, q_n, cells_n=300,
+                    d=96):
+    """Kernel J's buffer for `q_n` of the table's own rows against the
+    union of `budget` random cells equals the plain version's; one launch."""
+    db, (pv, pi, sc), rng = _slab_table(10, cells_n, d, 90, device)
     cells = torch.from_numpy(
-        rng.choice(300, budget, replace=False).astype(np.int32)).to(cuda)
-    q = torch.nn.functional.pad(db[:q_n], (0, 32))
+        rng.choice(cells_n, budget, replace=False).astype(np.int32)).to(device)
+    q = torch.nn.functional.pad(db[:q_n], (0, 32))  # to the table's width
     q8, q_lo, _ = packed_cuda.quantize_queries(q, two_level)
     tile = min(8, budget) * 128
     before = ivf_cuda.segment_packed_indirect_kernel.launches
@@ -327,6 +319,38 @@ def test_kernel_j_bit_equal_to_plain(cuda, budget, r_slots, two_level, q_n):
     want = ivf_cuda.segment_packed_indirect_plain(q8, pv, sc, pi, cells, tile,
                                                   r_slots, q_lo)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "budget,r_slots,two_level,q_n",
+    [(256, 5, False, 70), (256, 5, True, 70), (4, 3, True, 70),
+     (16, 30, True, 70), (2, 4, True, 1), (8, 4, False, 63),
+     (32, 5, True, 65), (256, 4, True, 600), (64, 4, False, 600)],
+)
+def test_kernel_j_bit_equal_to_plain(cuda, budget, r_slots, two_level, q_n):
+    # rows of 128 int8 columns, so the query rows stay in shared memory:
+    # budget < 8 narrows the tile (W = budget·128); R = 30 narrows the lane
+    # tile from 32 to 16 (the slots of 32 lanes leave too little room for
+    # the ring); 1, 63 and 65 queries sit at the 64-query tile's edges, 600
+    # make ten query tiles; every pass moves each lane tile to another cell
+    # of the table
+    _check_kernel_j(cuda, budget, r_slots, two_level, q_n)
+
+
+@pytest.mark.parametrize(
+    "budget,r_slots,two_level,cells_n,d",
+    [(400, 32, True, 400, 96), (400, 40, False, 400, 96),
+     (40, 4, True, 40, 2016), (40, 4, False, 40, 3040)],
+)
+def test_kernel_j_streamed_routes(cuda, budget, r_slots, two_level, cells_n,
+                                  d):
+    # where the query rows do not stay in shared memory, each ring stage
+    # streams their box beside a 64-lane box of one cell's rows: at d = 128
+    # when R's slots leave no room for them (R = 32 two-level, 40 one-level;
+    # the slots then live in the output buffer, 50 passes against R), and
+    # at d = 2048 (two-level) or 3072 (one-level) with R = 4 (slots in
+    # shared memory, 5 passes)
+    _check_kernel_j(cuda, budget, r_slots, two_level, 65, cells_n, d)
 
 
 @pytest.mark.parametrize("compute,k", [("sym", 10), ("sym2", 10),
