@@ -20,6 +20,9 @@ d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
      anchors hold at: W = 256, R = 7, R = 9 for sym2);
   4. the main path end to end (pipelines.benchmark.run on a seeded dataset
      written in the standard layout), launch counts reset just before;
+     then a second, warm run under torch.profiler: kernel C's device time,
+     launches and GCUPS over the real cells, the host-to-device copies and
+     the device's busy share;
   5. exact k = 1000 through FlatIndex.search on the same index; the
      approx and sq8 backends reach kernels A and F;
   6. the small-input check: the same pipeline on a small fixture on the
@@ -57,7 +60,10 @@ same int8 operands (the product only: no scales, no top-R slots). Each
 kernel's entry names its yardstick under "library" (null where there is
 none), since for G, F and J it is not one call computing the same
 function. Every kernel's line carries its bound: the least time the card could take, from
-its operations and bytes (PEAK_OPS, HBM_BYTES_PER_S).
+its operations and bytes (PEAK_OPS, HBM_BYTES_PER_S); C's counts the real
+DP cells of its four phase-3 blocks (sum of len(q) * len(t) over their
+pairs) at the int32 rate, and its entry adds their GCUPS (giga cell
+updates per second).
 Times are medians of five timed windows (cuda_ms), after a two-second
 warm-up of the card.
 
@@ -95,10 +101,16 @@ HI_RECALL_MIN = 0.985
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet), by the
 # operands' type, and its memory rate: the bound of a kernel is the larger
 # of its operations over the peak and its bytes over the memory rate
-PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# int32: 132 SMs x 64 INT32 lanes a clock (the Hopper SM's four partitions
+# of 16; NVIDIA's Hopper architecture white paper) x 1980 MHz, the H100
+# SXM's maximum SM clock (nvidia-smi clocks.max.sm; phase 1 prints it)
+PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12,
+            "int32": 132 * 64 * 1980e6}
 HBM_BYTES_PER_S = 3.35e12
-# Smith-Waterman cell: substitution lookup + add, two gap updates of two
-# ops each, a four-way max, the running best: ~10 scalar ops at fp32 rate
+# Smith-Waterman cell, in int32: substitution lookup + add, two gap
+# updates of two ops each, a four-way max, the running best: ~10 scalar
+# ops, counted over real cells (sum of len(q) * len(t) over the pairs), at
+# PEAK_OPS["int32"]
 SW_OPS_PER_CELL = 10
 # kernel vs plain in bf16: both round their result once from fp32 sums taken
 # in other orders (H's p also at other running maxima), an ulp or two apart;
@@ -256,6 +268,13 @@ def write_dataset(out: Path, seed: int, n_fam=N_TEST, per_train=FAMILY_TRAIN,
         with open(out / f"{split}.fasta", "w") as fp:
             fp.writelines(f">{i}\n{s}\n" for i, s in zip(ids, seqs))
     return train, test, train_seqs, test_seqs
+
+
+def real_cells(block) -> int:
+    """DP cells an alignment block needs: sum of len(row) * len(lane
+    target) over its pairs (no pad rows, columns, lanes or separators)."""
+    return sum(len(row_seq) * len(seq) for row_seq, lanes in block
+               for lane in lanes for seq, _, _ in lane)
 
 
 # ------------------------------------------------------------- checks
@@ -940,6 +959,11 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
+# phase 4 profile groups: kernel C (its lane scan and DP kernels), the
+# host-to-device copies (mostly C's lane codes), kernel A
+MAIN_KERNELS = (("C sw_grouped", ("sw_wavefront", "sw_lanes")),
+                ("H2D copies", ("memcpy htod",)),
+                ("A flat_topk", ("flat_topk",)))
 # G runs three CUDA kernels of csrc/ffn_fused.cu (the row norm and two
 # GEMMs); H and I are two instantiations of csrc/attention_t5.cuh's kernel
 ENCODER_KERNELS = (("G ffn_fused", ("::rms_norm_kernel<", "::gemm_kernel<")),
@@ -1135,8 +1159,13 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     card = card_line()
     device = torch.device("cuda")
+    max_sm = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
     log(f"phase 1 environment: {torch.cuda.get_device_name(0)} | {card} |"
-        f" torch {torch.__version__} cuda {torch.version.cuda}")
+        f" max SM clock {max_sm} | torch {torch.__version__} cuda"
+        f" {torch.version.cuda}")
 
     sys.path.insert(0, str(ROOT))
     from knn_for_homology_tpu_torch.ops import _build
@@ -1240,19 +1269,9 @@ def main() -> None:
         )
         assert ragged, "the workload must plan a ragged block"
         picked = classic[:3] + ragged[:1]
-        c_err, c_ms, c_plain_ms, c_ops, c_bytes = 0.0, 0.0, 0.0, 0, 0
+        c_err, c_ms, c_plain_ms, c_cells, c_bytes = 0.0, 0.0, 0.0, 0, 0
         for lq_b, lt_b, s_b, sweep, g_pad, block in picked:
-            qc = np.full((g_pad, lq_b), -1, np.int32)
-            tc = np.full((g_pad, 128, lt_b), -1, np.int32)
-            for i, (row_seq, lanes) in enumerate(block):
-                qc[i] = align_ops.encode_sequence(row_seq, lq_b)
-                for l, lane in enumerate(lanes):
-                    pos = 0
-                    for seq, _, _ in lane:
-                        tc[i, l, pos : pos + len(seq)] = align_ops.encode_sequence(
-                            seq, len(seq)
-                        )
-                        pos += len(seq) + 1
+            qc, tc = align_ops.lane_codes(block, lq_b, lt_b, g_pad, 128)
             qd, td = torch.from_numpy(qc).to(device), torch.from_numpy(tc).to(device)
             for conv in ("mmseqs", "blast"):
                 kw = dict(convention=conv, segments=s_b,
@@ -1271,20 +1290,26 @@ def main() -> None:
             plain_ms = cuda_ms(  # ~0.5 s a call: windows of one call
                 lambda: align_cuda.sw_scores_grouped_plain(qd, td, **kw), reps=1
             )
+            cells = real_cells(block)
             c_ms, c_plain_ms = c_ms + ms, c_plain_ms + plain_ms
-            c_ops += SW_OPS_PER_CELL * g_pad * 128 * lq_b * lt_b
+            c_cells += cells
             c_bytes += tensor_bytes(qd, td, k_out)
             log(f"phase 3 kernel C sw_grouped block G={g_pad} Lq={lq_b}"
                 f" K=128 Lt={lt_b} S={s_b}: bit-equal (both conventions),"
-                f" {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+                f" {ms:.3f} ms vs plain {plain_ms:.3f} ms, {cells} real"
+                f" cells, {cells / ms / 1e6:.1f} GCUPS")
+        c_bound = bound(SW_OPS_PER_CELL * c_cells, "int32", c_bytes)
         kernels["C"] = dict(
             name="sw_grouped", route="cuda",
             source="knn_for_homology_tpu_torch/csrc/sw_grouped.cu",
             replaces="knn_for_homology_tpu/ops/align_pallas.py:179",
             max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, library_ms=None,
-            library=None,
-            **bound(c_ops, "fp32", c_bytes),
+            library=None, gcups=c_cells / c_ms / 1e6, **c_bound,
         )
+        log(f"phase 3 kernel C: four blocks {c_ms:.3f} ms, {c_cells} real"
+            f" cells, {c_cells / c_ms / 1e6:.1f} GCUPS, bound"
+            f" {c_bound['bound_ms']:.3f} ms ({c_bound['bound_by']}), plain"
+            f" {c_plain_ms:.3f} ms")
 
         check_encoder_kernels(kernels, args.seed)
         check_ivf_kernels(db, q_all, kernels, args.seed)
@@ -1334,6 +1359,31 @@ def main() -> None:
             f" ({N_TEST / search_s:.0f} queries/s) | align {align_s:.3f} s,"
             f" {pairs} pairs, {cells_n:.4g} DP cells, {cells_n / align_s:.4g}"
             f" cells/s | run {wall:.1f} s | peak {peak / 2**30:.2f} GiB")
+
+        # phase 4 profile: a second, warm run of the main path under
+        # torch.profiler: C's device time and launches, the H2D copies and
+        # the device's busy share
+        c_before = align_cuda.sw_scores_grouped.launches
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()  # the run, not the trace's processing
+            benchmark.run(ds, hits=HITS, figures=False, device="cuda")
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        c_launches = align_cuda.sw_scores_grouped.launches - c_before
+        shares, top = device_time_shares(prof, MAIN_KERNELS)
+        device_ms = sum(ms for ms, _ in shares.values())
+        c_dev = shares.get("C sw_grouped", (0.0, 0.0))[0]
+        assert c_dev > 0 and c_launches > 0, "phase 4: C did not run"
+        log(f"phase 4 profile of the main path (wall {prof_s * 1e3:.1f} ms"
+            f" under the profiler, device busy {device_ms / (prof_s * 1e3):.3f}):"
+            + ", ".join(f" {g} {ms:.1f} ms ({share:.3f})"
+                        for g, (ms, share) in shares.items())
+            + f" | C: {c_launches} launches, {cells_n / c_dev / 1e6:.1f} GCUPS"
+            f" over {cells_n:.4g} real cells | largest of the rest: "
+            + ", ".join(f"{nm} {ms:.1f} ms" for nm, ms in top))
 
         plain = FlatIndex(device="cuda", backend="plain").add(train)
         p_scores, p_ids = plain.search(qk, 1000)

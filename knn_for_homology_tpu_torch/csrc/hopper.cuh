@@ -1,5 +1,5 @@
 // Hopper machinery shared by the wgmma + TMA kernels (attention_t5.cuh for
-// H and I, ffn_fused.cu for G, segment_packed.cu for F and J): mbarriers,
+// H and I, ffn_fused.cu for G, segment_packed.cu for D, E, F and J): mbarriers,
 // TMA tile loads and their tensor maps, and the wgmma fences and
 // shared-memory descriptors. sm_90a only.
 #pragma once
@@ -79,6 +79,12 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// makes this thread's shared-memory stores visible to the async proxy
+// (wgmma operands written by threads, not by TMA)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

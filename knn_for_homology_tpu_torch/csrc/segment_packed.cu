@@ -31,46 +31,63 @@
 // F and J are bit-exact: |dot| <= d * 127^2 < 2^24 for d <= 1024, so int32
 // -> f32 is exact, and lo * (1/128) is exact; the combine
 // (hi + lo * (1/128)) * sc is written with _rn intrinsics, so no FMA
-// contraction can reorder it. Int32 sums are exact in any order.
+// contraction can reorder it. Int32 sums are exact in any order. D and E
+// sum fp32 in another order than the reference (bit-equal where the dots
+// are exact, as on small-integer data); their epilogues (l2's
+// 2qd - |q|^2 - |d|^2, E's scale) keep the reference's order of _rn steps.
 //
 // What bounds them here: the products (2*Q*N*d operations; the [Q, N]
-// similarity block never reaches device memory): FFMA for D and E, int8
-// tensor cores for F and J. On the TPU the slots lived in VMEM across a
-// sequential pass axis. Here a block owns BM queries x BN lanes and loops
-// over ALL passes itself, so no cross-block merge is needed, and its slots
-// live in shared memory (4 bytes each, BM*BN*R*4 bytes). Each thread keeps
-// the R-th kept value of its (query, lane) pairs in registers, so a
-// candidate costs one compare and only winners pay the insertion. When the
-// slots do not fit (R > 25 for D and E; no workload plans it, but the
-// recall bound and the R*W >= k doubling can) they move to the output
-// buffer in device memory, as in kernel B.
+// similarity block never reaches device memory). On the TPU the slots
+// lived in VMEM across a sequential pass axis. Here a block owns BM
+// queries x BN lanes and loops over ALL passes itself, so no cross-block
+// merge is needed, and its slots live in shared memory (4 bytes each,
+// BM*BN*R*4 bytes). Each thread keeps the R-th kept value of its (query,
+// lane) pairs in registers, so a candidate costs one compare and only
+// winners pay the insertion. When the slots do not fit (large R; no
+// workload plans it, but the recall bound and the R*W >= k doubling can)
+// they move to the output buffer in device memory, as in kernel B.
 //
-// D and E (segment_packed): 32 queries x 64 lanes, 256 threads, register-
-// tiled FFMA products staged 16 columns at a time.
+// D with fp32 operands (segment_packed): 32 queries x 64 lanes, 256
+// threads, register-tiled FFMA products staged 16 columns at a time. It
+// stays on FFMA: TF32 products would change fp32 results (the reference
+// sums these at Precision.HIGHEST), as for kernel A.
 //
-// F and J (segment_packed_sym), on Hopper's int8 tensor cores: one
-// consumer warpgroup computes a 64-query x BN-lane tile of int32 dots per
-// pass with wgmma m64nBNk32 s8.s8 -> s32 (sym2: a second accumulator for
-// the residual rows against the same db tile), both operands K-major rows
-// (as int8 operands must be) in 128-byte-swizzled TMA boxes of 128
-// columns. A producer warp's lane 0 keeps a ring of stages in flight.
-// The block's query rows (and residuals) load once and stay in shared
-// memory, and the ring streams only db rows, 8 KB a stage, as deep
-// as the slots leave room for (BN = 32, or 16 where the slots of 32 leave
-// fewer than 4 stages: sym2 at R = 9); 32-lane tiles also give a
-// 1024-query block 128 blocks for the card's 132 SMs. Where resident rows
-// do not fit (large d or R), each stage carries a box of query rows too
-// (BN = 64). J's BN columns of a pass lie in one cell (BN divides 128), so
-// one box at the cell's row covers them. Each thread owns the same
+// D bf16, E, F and J (segment_packed_mma), on Hopper's tensor cores: one
+// consumer warpgroup computes a 64-query x BN-lane tile of dots per pass
+// with wgmma m64nBNk16 bf16.bf16 -> f32 (D, E) or m64nBNk32 s8.s8 -> s32
+// (F, J; sym2: a second accumulator for the residual rows against the
+// same db tile), both operands K-major rows in 128-byte-swizzled TMA boxes
+// (64 bf16 or 128 int8 columns). A producer warp's lane 0 keeps a ring of
+// stages in flight. The block's query rows (and residuals) load once and
+// stay in shared memory, and the ring streams only db rows, 8 KB a stage,
+// as deep as the slots leave room for (BN = 32, or 16 where the slots of
+// 32 leave fewer than 4 stages); 32-lane tiles also give a 1024-query
+// block 128 blocks for the card's 132 SMs. Where resident rows do not fit
+// (large d or R), each stage carries the chunk's query rows too (BN =
+// 64). J's BN columns of a pass lie in one cell (BN divides 128), so one
+// box at the cell's row covers them. Each thread owns the same
 // accumulator positions on every pass: its kept minima stay in registers,
-// and the scales and validity of its columns are loaded while the
+// and the scales, norms and validity of its columns are loaded while the
 // products run. The insert follows the products (see the kernel).
+//
+// E's int8 db rows widen to bf16 exactly (|x| <= 127). Of the two ways to
+// feed them to a bf16 wgmma (a bf16 copy of each stage in shared memory,
+// or db rows as the register operand A with the queries as B), E takes
+// the copy: the register route would swap the tile's roles (db rows on
+// the 64 accumulator rows), and with them the insert's layout, the slot
+// routing and the resident query rows that D, F and J share. The consumer
+// warpgroup widens each 128-column int8 box into two swizzled bf16 boxes
+// (three such buffers, so one barrier a box orders the copy against the
+// products still reading the buffer two boxes back), then runs the
+// products on them; the ring stage is released as soon as it is copied.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <limits.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "knn_common.cuh"
@@ -95,70 +112,22 @@ __device__ __forceinline__ int insert_slot(Ptr slots, size_t stride, int r,
   return slots[(size_t)(r - 1) * stride];
 }
 
-// ------------------------------------------------------------ D and E
+// ------------------------------------------------------------ D (fp32)
 // shared memory for the slots of one block; a block's tiles add < 8 KB,
 // inside the card's 227 KB per block
 constexpr int kSlotSmemBytes = 200 * 1024;
 // one block shape at every R: 32 queries (ops/exact_cuda.py:
-// SEGMENT_PACKED_QUERIES) x 64 lanes, 2 x 4 (query, lane) pairs per thread
+// F32_PACKED_QUERIES) x 64 lanes, 2 x 4 (query, lane) pairs per thread
 constexpr int kTM = 2, kTN = 4;
 
 struct Params {
-  const void* q;
-  const void* db;
-  const float* scales;
+  const float* q;
+  const float* db;
   int* buf;
   int q_n, n, d, w, r, jbits;
   bool l2, global_slots;
 };
 
-// sim[i][j] for the block's queries a0.. against db columns b0.. (the
-// reference kernels' arithmetic, in their order of operations)
-template <int TM, int TN, int V>
-__device__ __forceinline__ void tile_sims(const Params& p, int a0, int b0,
-                                          knn::TileSmem<TM, TN>& s,
-                                          float (&sim)[TM][TN]) {
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[TM][TN];
-  if constexpr (V == kF32) {
-    knn::tile_dots<TM, TN>(static_cast<const float*>(p.q), p.q_n, a0,
-                           static_cast<const float*>(p.db), p.n, b0, p.d,
-                           p.l2, s, acc);
-  } else if constexpr (V == kBF16) {
-    knn::tile_dots<TM, TN>(static_cast<const __nv_bfloat16*>(p.q), p.q_n, a0,
-                           static_cast<const __nv_bfloat16*>(p.db), p.n, b0,
-                           p.d, p.l2, s, acc);
-  } else {
-    knn::tile_dots<TM, TN>(static_cast<const __nv_bfloat16*>(p.q), p.q_n, a0,
-                           static_cast<const int8_t*>(p.db), p.n, b0, p.d,
-                           p.l2, s, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int il = ty * TM + i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int jl = tx * TN + j;
-      if constexpr (V == kSQ8) {
-        const int col = b0 + jl;
-        const float sc = col < p.n ? p.scales[col] : 1.f;
-        // _rn intrinsics: no FMA contraction, each step rounds as the
-        // reference's separate f32 ops do
-        float v = __fmul_rn(acc[i][j], sc);
-        if (p.l2) {
-          const float d_sq = __fmul_rn(__fmul_rn(s.b_sq[jl], sc), sc);
-          v = __fsub_rn(__fsub_rn(2.f * v, s.a_sq[il]), d_sq);
-        }
-        sim[i][j] = v;
-      } else {
-        sim[i][j] = knn::tile_sim<TM, TN>(s, acc[i][j], il, jl, p.l2);
-      }
-    }
-  }
-}
-
-template <int V>
 __global__ void __launch_bounds__(knn::kThreads)
 segment_packed(const Params p) {
   constexpr int TM = kTM, TN = kTN, BM = 16 * TM, BN = 16 * TN;
@@ -191,8 +160,8 @@ segment_packed(const Params p) {
   const int passes = (p.n + p.w - 1) / p.w;
   for (int pass = 0; pass < passes; ++pass) {
     const int b0 = pass * p.w + lane0;
-    float sim[TM][TN];
-    tile_sims<TM, TN, V>(p, a0, b0, s, sim);
+    float acc[TM][TN];
+    knn::tile_dots<TM, TN>(p.q, p.q_n, a0, p.db, p.n, b0, p.d, p.l2, s, acc);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int il = ty * TM + i;
@@ -201,8 +170,8 @@ segment_packed(const Params p) {
       for (int j = 0; j < TN; ++j) {
         const int jl = tx * TN + j;
         if (b0 + jl >= p.n) continue;  // columns past n never enter
-        const int cand =
-            (knn::ordered_int(sim[i][j]) & ~jmax) | (jmax - pass);
+        const float sim = knn::tile_sim<TM, TN>(s, acc[i][j], il, jl, p.l2);
+        const int cand = (knn::ordered_int(sim) & ~jmax) | (jmax - pass);
         if (cand <= kept_min[i][j]) continue;
         if (p.global_slots) {
           kept_min[i][j] = insert_slot(
@@ -228,46 +197,92 @@ segment_packed(const Params p) {
 
 // The slot route by R: shared memory while a block's slots fit
 // kSlotSmemBytes (R <= 25), else the output buffer in device memory.
-template <int V>
-cudaError_t launch(Params p, cudaStream_t stream) {
+cudaError_t launch_f32(Params p, cudaStream_t stream) {
   constexpr int BM = 16 * kTM, BN = 16 * kTN;
   p.global_slots = (size_t)BM * BN * p.r * sizeof(int) > kSlotSmemBytes;
   const size_t smem = p.global_slots ? 0 : (size_t)BM * BN * p.r * sizeof(int);
-  auto kernel = segment_packed<V>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      segment_packed, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.q_n + BM - 1) / BM, p.w / BN);
-  kernel<<<grid, knn::kThreads, smem, stream>>>(p);
+  segment_packed<<<grid, knn::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ F and J
-namespace sym {
+// Squared row norms |x_i|^2 in fp32 for the l2 epilogues of D and E, one
+// warp a row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+row_sq_norms(const T* __restrict__ x, int rows, int d, float* __restrict__ out) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float sq = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float v = knn::to_float(x[(size_t)row * d + c]);
+    sq = fmaf(v, v, sq);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  if (lane == 0) out[row] = sq;
+}
+
+template <typename T>
+cudaError_t launch_norms(const void* x, int rows, int d, float* out,
+                         cudaStream_t stream) {
+  row_sq_norms<T><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const T*>(x), rows, d, out);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------ D bf16, E, F and J
+namespace mma {
 
 using namespace knn_sm90;
 
 constexpr int BM = 64;             // queries per block: one warpgroup
-constexpr int KC = 128;            // int8 columns a box: one swizzled row
+constexpr int BOX = 128;           // bytes of a box row: one swizzled row
 constexpr int THREADS = 128 + 32;  // the consumer warpgroup + producer warp
 constexpr int MAX_STAGES = 16;
 constexpr int RESIDENT_STAGE = 8192;  // db bytes a stage, resident route
 constexpr int MIN_RESIDENT_STAGES = 4;
 constexpr size_t SMEM_LIMIT = 227 * 1024;
-constexpr int A_BYTES = BM * KC;   // one box of query rows, 8 KB
+constexpr int A_BYTES = BM * BOX;  // one box of query rows, 8 KB
 // a warp's winners held before an insert round: up to 31 left over and 32
 // more from one accumulator position
 constexpr int QUEUE = 64;
+constexpr int CONV_BUFS = 3;       // E's widened boxes in flight
 
-struct SymParams {
-  const float* scales;  // F: [n]; J: [C*128], per packed row
+// the operands of a variant: bytes of a query and of a db element, query
+// boxes per db box (E: two bf16 boxes cover one 128-column int8 box), the
+// sym2 residual operand, E's widening copy, integer accumulators
+__host__ __device__ constexpr int q_elem(int v) {
+  return v == kBF16 || v == kSQ8 ? 2 : 1;
+}
+__host__ __device__ constexpr int db_elem(int v) { return v == kBF16 ? 2 : 1; }
+__host__ __device__ constexpr int q_boxes(int v) {
+  return q_elem(v) / db_elem(v);
+}
+__host__ __device__ constexpr bool two(int v) { return v == kSym2; }
+__host__ __device__ constexpr bool widens(int v) { return v == kSQ8; }
+__host__ __device__ constexpr int a_stride(int v) {
+  return A_BYTES * q_boxes(v) * (two(v) ? 2 : 1);
+}
+// E's buffers of widened db boxes: CONV_BUFS x two bf16 boxes of bn rows
+__host__ __device__ constexpr int conv_bytes(int v, int bn) {
+  return widens(v) ? CONV_BUFS * q_boxes(v) * bn * BOX : 0;
+}
+
+struct MmaParams {
+  const float* scales;  // E, F: [n]; J: [C*128], per packed row
+  const float* q_sq;    // D, E l2: [q_n] squared query norms
+  const float* d_sq;    // D, E l2: [n] squared db row norms (E: of codes)
   const int* cells;     // J: [n / 128] the cell of each slot
   const int* ids;       // J: [C*128] packed ids, -1 padding
   int* buf;
   int q_n, n, d, w, r, jbits;
-  // the launch's plan (plan_for): boxes of 128 columns a pass, ring
-  // stages and their bytes, bytes of the resident query rows, slots in
-  // device memory
+  bool l2;
+  // the launch's plan (plan_for): db boxes along d a pass, ring stages and
+  // their bytes, bytes of the resident query rows, slots in device memory
   int chunks, stages, stage_bytes, a_bytes;
   bool global_slots;
 };
@@ -281,21 +296,34 @@ __device__ __forceinline__ float sym_sim(int hi, int lo, float sc) {
   return __fmul_rn(v, sc);
 }
 
-// d[64 x BN] += A[64 x 32] . B[32 x BN], int8 -> int32, both K-major in
-// shared memory; BN = 16, 32 or 64
-__device__ __forceinline__ void wgmma_s8(int (&d)[8], uint64_t desc_a,
-                                         uint64_t desc_b) {
+// D's and E's similarity, in the reference kernels' order of operations:
+// D dot, or 2 dot - |q|^2 - |d|^2; E dot * sc, or 2 (dot * sc) - |q|^2 -
+// (sum(db^2) * sc) * sc
+template <int V>
+__device__ __forceinline__ float float_sim(float dot, float sc, float q_sq,
+                                           float d_sq, bool l2) {
+  float v = V == kSQ8 ? __fmul_rn(dot, sc) : dot;
+  if (l2) {
+    const float dn = V == kSQ8 ? __fmul_rn(__fmul_rn(d_sq, sc), sc) : d_sq;
+    v = __fsub_rn(__fsub_rn(2.f * v, q_sq), dn);
+  }
+  return v;
+}
+
+// d[64 x BN] += A[64 x k] . B[k x BN], both K-major in shared memory, one
+// 32-byte k step: int8 -> int32 (k32) or bf16 -> f32 (k16); BN = 16, 32
+// or 64
+__device__ __forceinline__ void wgmma(int (&d)[8], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
         "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(a), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_s8(int (&d)[16], uint64_t desc_a,
-                                         uint64_t desc_b) {
+__device__ __forceinline__ void wgmma(int (&d)[16], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
@@ -305,11 +333,10 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[16], uint64_t desc_a,
         "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
         "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
         "+r"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(a), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t desc_a,
-                                         uint64_t desc_b) {
+__device__ __forceinline__ void wgmma(int (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
@@ -323,20 +350,94 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t desc_a,
         "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
         "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
         "+r"(d[30]), "+r"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// the 128 consumer threads only (the producer warp has returned)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// E: one int8 box [BN rows][128 columns] of the ring -> two bf16 boxes
+// [BN rows][64 columns] in `dst`, exactly, in the 128-byte swizzle (16-byte
+// chunk c of row r sits at chunk c ^ (r % 8)) that both TMA and the wgmma
+// descriptors use; by the 128 consumer threads.
+template <int BN>
+__device__ __forceinline__ void widen_box(const unsigned char* src,
+                                          unsigned char* dst, int tid) {
+#pragma unroll
+  for (int i = 0; i < BN * 8 / 128; ++i) {
+    const int u = tid + 128 * i;
+    const int r = u >> 3, c = u & 7, x = r & 7;
+    const int4 v = *reinterpret_cast<const int4*>(src + r * BOX + ((c ^ x) << 4));
+    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+    uint32_t w[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn((float)b[2 * i], (float)b[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    unsigned char* row = dst + (c >> 2) * (BN * BOX) + r * BOX;
+    const int lc = 2 * (c & 3);  // the two 8-column bf16 chunks of chunk c
+    *reinterpret_cast<int4*>(row + ((lc ^ x) << 4)) =
+        make_int4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<int4*>(row + (((lc + 1) ^ x) << 4)) =
+        make_int4(w[4], w[5], w[6], w[7]);
+  }
 }
 
 // first db row of pass `pass`'s BN columns (F: the column itself; J: its
 // row in the slab table, all BN in one cell)
 template <bool kInd>
-__device__ __forceinline__ int tile_row(const SymParams& p, int c0) {
+__device__ __forceinline__ int tile_row(const MmaParams& p, int c0) {
   return kInd ? p.cells[c0 >> 7] * 128 + (c0 & 127) : c0;
 }
 
 // Insert one queued winner: `key` = il * BN + jl of the tile, into the
 // block's shared slots or its rows of the output buffer.
 template <int BN>
-__device__ __forceinline__ void insert_winner(const SymParams& p, int* slots,
+__device__ __forceinline__ void insert_winner(const MmaParams& p, int* slots,
                                               int a0, int lane0, int key,
                                               int cand) {
   if (p.global_slots)
@@ -347,14 +448,15 @@ __device__ __forceinline__ void insert_winner(const SymParams& p, int* slots,
 }
 
 // Shared memory, from a 1024-byte aligned base: the resident query rows
-// [chunks][q | q_lo] (BN < 64), the ring [stages] of stage_bytes (BN < 64:
-// 64 / BN db boxes; BN = 64: one box each of q, q_lo and db), the full and
-// empty barriers of the ring and the resident rows' barrier, each consumer
-// warp's queue of winners [4][keys, values][QUEUE], then the slots
-// [R][BM][BN] unless global_slots. Maps: q (and q_lo) {d, q_n} in 128 x 64
-// boxes, db {d, rows} in 128 x BN boxes; boxes past d (the resident route
-// rounds a pass's boxes up to whole stages) and rows past the tables
-// arrive as zeros.
+// [chunks][q boxes | q_lo] (BN < 64), E's widened boxes [CONV_BUFS][2][BN
+// rows x 128 bytes], the ring [stages] of stage_bytes (BN < 64: 8 KB of db
+// boxes; BN = 64: one chunk's query boxes, residuals and db box), the full
+// and empty barriers of the ring and the resident rows' barrier, each
+// consumer warp's queue of winners [4][keys, values][QUEUE], then the
+// slots [R][BM][BN] unless global_slots. Maps: q (and q_lo) {d, q_n} in
+// boxes of 128 bytes x 64 rows, db {d, rows} in boxes of 128 bytes x BN
+// rows; boxes past d (the resident route rounds a pass's boxes up to whole
+// stages) and rows past the tables arrive as zeros.
 //
 // The insert. A pass's winners (candidates above their pair's R-th kept
 // value) are rare after the first passes but spread over the warp: one
@@ -364,22 +466,28 @@ __device__ __forceinline__ void insert_winner(const SymParams& p, int* slots,
 // them into its queue (ballot + prefix count) and inserts 32 at a time,
 // one per lane; then each owner re-reads the R-th value of the pairs it
 // won.
-template <int BN, bool kTwo, bool kInd>
+template <int BN, int V, bool kInd>
 __global__ void __launch_bounds__(THREADS)
-segment_packed_sym(const __grid_constant__ CUtensorMap q_map,
+segment_packed_mma(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap lo_map,
                    const __grid_constant__ CUtensorMap db_map,
-                   const SymParams p) {
+                   const MmaParams p) {
   constexpr bool RESIDENT = BN < 64;
-  constexpr int SB = RESIDENT ? RESIDENT_STAGE / (BN * KC) : 1;  // db boxes
+  constexpr bool kTwo = two(V), WIDEN = widens(V);
+  constexpr int QB = q_boxes(V);
+  constexpr int DB_COLS = BOX / db_elem(V);  // db columns a box
+  constexpr int Q_COLS = BOX / q_elem(V);    // query columns a box
+  constexpr int B_BOX = BN * BOX;
+  constexpr int SB = RESIDENT ? RESIDENT_STAGE / B_BOX : 1;  // db boxes
   constexpr int NJ = BN / 8;  // 8-column groups of the accumulator
-  constexpr int A_STRIDE = A_BYTES * (kTwo ? 2 : 1);
-  constexpr int B_BOX = BN * KC;
+  constexpr int A_STRIDE = a_stride(V);
+  using Acc = typename std::conditional<(V >= kSym), int, float>::type;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int S = p.stages;
-  unsigned char* ring_p = base + p.a_bytes;
+  unsigned char* conv_p = base + p.a_bytes;
+  unsigned char* ring_p = conv_p + conv_bytes(V, BN);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring_p + S * p.stage_bytes);
   uint64_t* empty = full + S;
   uint64_t* a_full = empty + S;
@@ -412,10 +520,12 @@ segment_packed_sym(const __grid_constant__ CUtensorMap q_map,
       if (RESIDENT) {
         mbar_expect_tx(a_full, p.a_bytes);
         for (int kc = 0; kc < p.chunks; ++kc) {
-          tma_load_2d(base + kc * A_STRIDE, &q_map, a_full, kc * KC, a0);
+          for (int h = 0; h < QB; ++h)
+            tma_load_2d(base + kc * A_STRIDE + h * A_BYTES, &q_map, a_full,
+                        kc * DB_COLS + h * Q_COLS, a0);
           if (kTwo)
             tma_load_2d(base + kc * A_STRIDE + A_BYTES, &lo_map, a_full,
-                        kc * KC, a0);
+                        kc * DB_COLS, a0);
         }
       }
       int s = 0, phase = 0;
@@ -429,12 +539,14 @@ segment_packed_sym(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
             for (int b = 0; b < SB; ++b)
               tma_load_2d(stage + b * B_BOX, &db_map, &full[s],
-                          (j * SB + b) * KC, row0);
+                          (j * SB + b) * DB_COLS, row0);
           } else {
-            tma_load_2d(stage, &q_map, &full[s], j * KC, a0);
+            for (int h = 0; h < QB; ++h)
+              tma_load_2d(stage + h * A_BYTES, &q_map, &full[s],
+                          j * DB_COLS + h * Q_COLS, a0);
             if (kTwo)
-              tma_load_2d(stage + A_BYTES, &lo_map, &full[s], j * KC, a0);
-            tma_load_2d(stage + A_STRIDE, &db_map, &full[s], j * KC, row0);
+              tma_load_2d(stage + A_BYTES, &lo_map, &full[s], j * DB_COLS, a0);
+            tma_load_2d(stage + A_STRIDE, &db_map, &full[s], j * DB_COLS, row0);
           }
           if (++s == S) {
             s = 0;
@@ -457,6 +569,11 @@ segment_packed_sym(const __grid_constant__ CUtensorMap q_map,
   const unsigned below = (1u << lane) - 1u;  // lanes before this one
   int* q_key = queues + warp * 2 * QUEUE;
   int* q_val = q_key + QUEUE;
+  float q_sq[2] = {0.f, 0.f};
+  if (V < kSym && p.l2) {
+    for (int h = 0; h < 2; ++h)
+      if (live[h]) q_sq[h] = p.q_sq[a0 + il0 + 8 * h];
+  }
 
   int kept[NJ][4];
 #pragma unroll
@@ -476,13 +593,14 @@ segment_packed_sym(const __grid_constant__ CUtensorMap q_map,
     }
 
   const uint32_t a_base = smem_u32(base), ring = smem_u32(ring_p);
+  const uint32_t conv = smem_u32(conv_p);
   if (RESIDENT) mbar_wait(a_full, 0);
-  int s = 0, phase = 0;
+  int s = 0, phase = 0, widened = 0;
   for (int pass = 0; pass < passes; ++pass) {
     const int c0 = pass * p.w + lane0;
-    // this pass's scales and validity of the thread's columns, in flight
-    // while the products run
-    float sc[NJ][2];
+    // this pass's scales, norms and validity of the thread's columns, in
+    // flight while the products run
+    float sc[NJ][2], dsq[NJ][2];
     bool ok[NJ][2];
     const int row0 = tile_row<kInd>(p, c0);
 #pragma unroll
@@ -495,40 +613,76 @@ segment_packed_sym(const __grid_constant__ CUtensorMap q_map,
           ok[j][h] = p.ids[row0 + jl] >= 0;
         } else {
           ok[j][h] = c0 + jl < p.n;
-          sc[j][h] = ok[j][h] ? p.scales[c0 + jl] : 1.f;
+          sc[j][h] = V != kBF16 && ok[j][h] ? p.scales[c0 + jl] : 1.f;
         }
+        dsq[j][h] = V < kSym && p.l2 && ok[j][h] ? p.d_sq[c0 + jl] : 0.f;
       }
 
-    int acc[BN / 2], lo[BN / 2];
+    Acc acc[BN / 2], lo[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = lo[i] = 0;
     int prev = 0;
     for (int j = 0; j < steps; ++j) {
       mbar_wait(smem_u32(&full[s]), phase);
       const uint32_t st = ring + s * p.stage_bytes;
-      fence_regs(acc);
-      if (kTwo) fence_regs(lo);
-      wgmma_fence();
+      if constexpr (WIDEN) {
+        // E: widen each db box into the next of the CONV_BUFS buffers,
+        // then its products. The barrier after the copy also orders it
+        // after every warp's wait for the products two boxes back, the
+        // last reader of this buffer. A resident stage holds db rows only
+        // and is released once copied; a streamed one also holds the query
+        // rows the products read, and is released as D's, F's and J's are.
 #pragma unroll
-      for (int b = 0; b < SB; ++b) {
-        const uint32_t qa = RESIDENT ? a_base + (j * SB + b) * A_STRIDE : st;
-        const uint32_t da = RESIDENT ? st + b * B_BOX : st + A_STRIDE;
-        // a k32 step moves 32 bytes into the swizzled 128-byte rows
+        for (int b = 0; b < SB; ++b) {
+          const uint32_t qa = RESIDENT ? a_base + (j * SB + b) * A_STRIDE : st;
+          const int off = (widened % CONV_BUFS) * QB * B_BOX;
+          widen_box<BN>(ring_p + s * p.stage_bytes +
+                            (RESIDENT ? b * B_BOX : A_STRIDE),
+                        conv_p + off, threadIdx.x);
+          fence_async_shared();
+          consumer_sync();
+          if (RESIDENT && b == SB - 1 && lane == 0) mbar_arrive(&empty[s]);
+          fence_regs(acc);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < KC / 32; ++kk) {
-          const uint64_t db_desc = sw128_desc(da + kk * 32, 16, 1024);
-          wgmma_s8(acc, sw128_desc(qa + kk * 32, 16, 1024), db_desc);
-          if (kTwo)
-            wgmma_s8(lo, sw128_desc(qa + A_BYTES + kk * 32, 16, 1024),
-                     db_desc);
+          for (int h = 0; h < QB; ++h)
+#pragma unroll
+            for (int kk = 0; kk < BOX / 32; ++kk)
+              wgmma(acc, sw128_desc(qa + h * A_BYTES + kk * 32, 16, 1024),
+                    sw128_desc(conv + off + h * B_BOX + kk * 32, 16, 1024));
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(acc);
+          ++widened;
         }
+        if (!RESIDENT) {
+          if (j > 0 && lane == 0) mbar_arrive(&empty[prev]);
+          prev = s;
+        }
+      } else {
+        fence_regs(acc);
+        if (kTwo) fence_regs(lo);
+        wgmma_fence();
+#pragma unroll
+        for (int b = 0; b < SB; ++b) {
+          const uint32_t qa = RESIDENT ? a_base + (j * SB + b) * A_STRIDE : st;
+          const uint32_t da = RESIDENT ? st + b * B_BOX : st + A_STRIDE;
+          // a k step moves 32 bytes into the swizzled 128-byte rows
+#pragma unroll
+          for (int kk = 0; kk < BOX / 32; ++kk) {
+            const uint64_t db_desc = sw128_desc(da + kk * 32, 16, 1024);
+            wgmma(acc, sw128_desc(qa + kk * 32, 16, 1024), db_desc);
+            if (kTwo)
+              wgmma(lo, sw128_desc(qa + A_BYTES + kk * 32, 16, 1024), db_desc);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        fence_regs(acc);
+        if (kTwo) fence_regs(lo);
+        if (j > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
       }
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous stage's products are done
-      fence_regs(acc);
-      if (kTwo) fence_regs(lo);
-      if (j > 0 && lane == 0) mbar_arrive(&empty[prev]);
-      prev = s;
       if (++s == S) {
         s = 0;
         phase ^= 1;
@@ -537,7 +691,7 @@ segment_packed_sym(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait<0>();
     fence_regs(acc);
     if (kTwo) fence_regs(lo);
-    if (lane == 0) mbar_arrive(&empty[prev]);
+    if (!(WIDEN && RESIDENT) && lane == 0) mbar_arrive(&empty[prev]);
 
     // this pass's winners through the warp's queue (n entries, warp-wide)
     int n = 0;
@@ -548,12 +702,15 @@ segment_packed_sym(const __grid_constant__ CUtensorMap q_map,
       for (int e = 0; e < 4; ++e) {
         // rows past q_n and masked columns (past n, J's padding) never enter
         int cand = INT_MIN;
-        if (live[e >> 1] && ok[j][e & 1])
-          cand = (knn::ordered_int(sym_sim<kTwo>(acc[4 * j + e],
-                                                 lo[4 * j + e],
-                                                 sc[j][e & 1])) &
-                  ~jmax) |
-                 (jmax - pass);
+        if (live[e >> 1] && ok[j][e & 1]) {
+          float sim;
+          if constexpr (V >= kSym)
+            sim = sym_sim<kTwo>(acc[4 * j + e], lo[4 * j + e], sc[j][e & 1]);
+          else
+            sim = float_sim<V>(acc[4 * j + e], sc[j][e & 1], q_sq[e >> 1],
+                               dsq[j][e & 1], p.l2);
+          cand = (knn::ordered_int(sim) & ~jmax) | (jmax - pass);
+        }
         const bool win = cand > kept[j][e];
         const unsigned mask = __ballot_sync(0xffffffffu, win);
         if (win) {
@@ -590,7 +747,7 @@ segment_packed_sym(const __grid_constant__ CUtensorMap q_map,
       }
   }
   if (p.global_slots) return;
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumers only
+  consumer_sync();
   // coalesced copy-out: consecutive threads write consecutive lanes
   for (int e = threadIdx.x; e < BM * BN * p.r; e += 128) {
     const int jl = e % BN, il = (e / BN) % BM, r = e / (BM * BN);
@@ -601,9 +758,11 @@ segment_packed_sym(const __grid_constant__ CUtensorMap q_map,
 }
 
 // bytes of a launch's shared memory beside its ring: the alignment slack,
-// the barriers, the queues, the resident rows and the slots
-size_t fixed_bytes(const SymParams& p, int bn) {
+// the barriers, the queues, the resident rows, E's widened boxes and the
+// slots
+size_t fixed_bytes(const MmaParams& p, int v, int bn) {
   return 1024 + 16 * MAX_STAGES + 8 + 4 * 2 * QUEUE * sizeof(int) + p.a_bytes +
+         conv_bytes(v, bn) +
          (p.global_slots ? 0 : (size_t)BM * bn * p.r * sizeof(int));
 }
 
@@ -613,18 +772,17 @@ size_t fixed_bytes(const SymParams& p, int bn) {
 //     in shared memory, and the ring streams 8 KB stages of db rows only,
 //     as deep as the rest of the 227 KB allows.
 //   * Streamed (BN = 64), where resident rows do not fit (large d or R):
-//     each stage is one box of query rows, residuals and db rows; slots in
-//     device memory when two stages do not fit beside them.
-int plan_for(SymParams& p, bool two) {
-  const int boxes = (p.d + KC - 1) / KC;
-  const int a_stride = A_BYTES * (two ? 2 : 1);
+//     each stage is one chunk's query boxes, residuals and db box; slots
+//     in device memory when two stages do not fit beside them.
+int plan_for(MmaParams& p, int v) {
+  const int boxes = (p.d * db_elem(v) + BOX - 1) / BOX;
   p.global_slots = false;
   for (int bn : {32, 16}) {
-    const int sb = RESIDENT_STAGE / (bn * KC);
+    const int sb = RESIDENT_STAGE / (bn * BOX);
     p.chunks = (boxes + sb - 1) / sb * sb;
-    p.a_bytes = p.chunks * a_stride;
+    p.a_bytes = p.chunks * a_stride(v);
     p.stage_bytes = RESIDENT_STAGE;
-    const size_t fixed = fixed_bytes(p, bn);
+    const size_t fixed = fixed_bytes(p, v, bn);
     if (fixed + (size_t)MIN_RESIDENT_STAGES * RESIDENT_STAGE <= SMEM_LIMIT) {
       p.stages = (int)std::min<size_t>(MAX_STAGES,
                                        (SMEM_LIMIT - fixed) / RESIDENT_STAGE);
@@ -633,19 +791,19 @@ int plan_for(SymParams& p, bool two) {
   }
   p.chunks = boxes;
   p.a_bytes = 0;
-  p.stage_bytes = a_stride + 64 * KC;
-  if (fixed_bytes(p, 64) + 2 * (size_t)p.stage_bytes > SMEM_LIMIT)
+  p.stage_bytes = a_stride(v) + 64 * BOX;
+  if (fixed_bytes(p, v, 64) + 2 * (size_t)p.stage_bytes > SMEM_LIMIT)
     p.global_slots = true;
   p.stages = (int)std::min<size_t>(
-      MAX_STAGES, (SMEM_LIMIT - fixed_bytes(p, 64)) / p.stage_bytes);
+      MAX_STAGES, (SMEM_LIMIT - fixed_bytes(p, v, 64)) / p.stage_bytes);
   return 64;
 }
 
-template <int BN, bool kTwo, bool kInd>
-cudaError_t launch(const CUtensorMap (&maps)[3], const SymParams& p,
+template <int BN, int V, bool kInd>
+cudaError_t launch(const CUtensorMap (&maps)[3], const MmaParams& p,
                    cudaStream_t stream) {
-  const size_t smem = fixed_bytes(p, BN) + (size_t)p.stages * p.stage_bytes;
-  auto kernel = segment_packed_sym<BN, kTwo, kInd>;
+  const size_t smem = fixed_bytes(p, V, BN) + (size_t)p.stages * p.stage_bytes;
+  auto kernel = segment_packed_mma<BN, V, kInd>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -654,55 +812,77 @@ cudaError_t launch(const CUtensorMap (&maps)[3], const SymParams& p,
   return cudaGetLastError();
 }
 
-template <bool kTwo, bool kInd>
+template <int V, bool kInd>
 cudaError_t launch_any(const void* q, const void* q_lo, const void* db,
-                       int db_rows, SymParams p, cudaStream_t stream) {
-  const int bn = plan_for(p, kTwo);
+                       int db_rows, MmaParams p, cudaStream_t stream) {
+  const int bn = plan_for(p, V);
   CUtensorMap maps[3];
   const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  if (!make_map_2d(&maps[0], q, u8, 1, p.q_n, p.d, KC, BM) ||
-      (kTwo && !make_map_2d(&maps[1], q_lo, u8, 1, p.q_n, p.d, KC, BM)) ||
-      !make_map_2d(&maps[2], db, u8, 1, db_rows, p.d, KC, bn))
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int qe = q_elem(V), de = db_elem(V);
+  if (!make_map_2d(&maps[0], q, qe == 2 ? bf : u8, qe, p.q_n, p.d, BOX / qe,
+                   BM) ||
+      (two(V) && !make_map_2d(&maps[1], q_lo, u8, 1, p.q_n, p.d, BOX, BM)) ||
+      !make_map_2d(&maps[2], db, de == 2 ? bf : u8, de, db_rows, p.d,
+                   BOX / de, bn))
     return cudaErrorInvalidValue;
-  if (!kTwo) maps[1] = maps[0];
+  if (!two(V)) maps[1] = maps[0];
   switch (bn) {
-    case 16: return launch<16, kTwo, kInd>(maps, p, stream);
-    case 32: return launch<32, kTwo, kInd>(maps, p, stream);
-    default: return launch<64, kTwo, kInd>(maps, p, stream);
+    case 16: return launch<16, V, kInd>(maps, p, stream);
+    case 32: return launch<32, V, kInd>(maps, p, stream);
+    default: return launch<64, V, kInd>(maps, p, stream);
   }
 }
 
-}  // namespace sym
+}  // namespace mma
 
 }  // namespace
 
 // variant: 0 D fp32, 1 D bf16, 2 E (bf16 q, int8 db), 3 F sym, 4 F sym2.
-// d counts columns; F needs d % 16 == 0 (TMA rows of whole 16 bytes).
+// d counts columns; every variant but fp32 D needs d % 16 == 0 (TMA rows
+// of whole 16 bytes). norms: [q_n + n] f32 scratch for l2 with D bf16 and
+// E (the squared norms of the queries, then of the db rows), else unused.
 extern "C" int knn_segment_packed(const void* q, const void* q_lo,
                                   const void* db, const float* scales,
-                                  int* buf, int q_n, int n, int d, int w,
-                                  int r, int jbits, int variant, int l2,
-                                  cudaStream_t stream) {
+                                  float* norms, int* buf, int q_n, int n,
+                                  int d, int w, int r, int jbits, int variant,
+                                  int l2, cudaStream_t stream) {
   const bool sq8 = variant >= kSQ8, sym = variant >= kSym;
   if (w < 64 || w % 64 != 0 || r < 1 || q_n < 1 || n < 1 || d < 1 ||
       jbits < 1 || jbits > 30 || variant < kF32 || variant > kSym2 ||
       (sq8 && scales == nullptr) || (variant == kSym2 && q_lo == nullptr) ||
-      (sym && (l2 || d % 16 != 0)))
+      (sym && l2) || (variant != kF32 && d % 16 != 0) ||
+      (l2 && (variant == kBF16 || variant == kSQ8) && norms == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (sym) {
-    sym::SymParams p{};
-    p.scales = scales;
-    p.buf = buf;
-    p.q_n = q_n, p.n = n, p.d = d, p.w = w, p.r = r, p.jbits = jbits;
-    return variant == kSym2
-               ? (int)sym::launch_any<true, false>(q, q_lo, db, n, p, stream)
-               : (int)sym::launch_any<false, false>(q, q_lo, db, n, p, stream);
+  if (variant == kF32) {
+    const Params p{static_cast<const float*>(q), static_cast<const float*>(db),
+                   buf, q_n, n, d, w, r, jbits, l2 != 0, false};
+    return (int)launch_f32(p, stream);
   }
-  Params p{q, db, scales, buf, q_n, n, d, w, r, jbits, l2 != 0, false};
+  mma::MmaParams p{};
+  p.scales = scales;
+  p.buf = buf;
+  p.q_n = q_n, p.n = n, p.d = d, p.w = w, p.r = r, p.jbits = jbits;
+  p.l2 = l2 != 0;
+  if (p.l2) {
+    p.q_sq = norms;
+    p.d_sq = norms + q_n;
+    cudaError_t err = launch_norms<__nv_bfloat16>(q, q_n, d, norms, stream);
+    if (err == cudaSuccess)
+      err = variant == kBF16
+                ? launch_norms<__nv_bfloat16>(db, n, d, norms + q_n, stream)
+                : launch_norms<int8_t>(db, n, d, norms + q_n, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   switch (variant) {
-    case kF32: return (int)launch<kF32>(p, stream);
-    case kBF16: return (int)launch<kBF16>(p, stream);
-    default: return (int)launch<kSQ8>(p, stream);
+    case kBF16:
+      return (int)mma::launch_any<kBF16, false>(q, q_lo, db, n, p, stream);
+    case kSQ8:
+      return (int)mma::launch_any<kSQ8, false>(q, q_lo, db, n, p, stream);
+    case kSym:
+      return (int)mma::launch_any<kSym, false>(q, q_lo, db, n, p, stream);
+    default:
+      return (int)mma::launch_any<kSym2, false>(q, q_lo, db, n, p, stream);
   }
 }
 
@@ -722,7 +902,7 @@ extern "C" int knn_ivf_indirect(const void* q, const void* q_lo,
       table_rows < 128 || (two_level && q_lo == nullptr) ||
       cells == nullptr || ids == nullptr)
     return (int)cudaErrorInvalidValue;
-  sym::SymParams p{};
+  mma::MmaParams p{};
   p.scales = scales;
   p.cells = cells;
   p.ids = ids;
@@ -730,8 +910,8 @@ extern "C" int knn_ivf_indirect(const void* q, const void* q_lo,
   p.q_n = q_n, p.n = budget * 128, p.d = d, p.w = w, p.r = r;
   p.jbits = jbits;
   return two_level
-             ? (int)sym::launch_any<true, true>(q, q_lo, pv, table_rows, p,
-                                                stream)
-             : (int)sym::launch_any<false, true>(q, q_lo, pv, table_rows, p,
-                                                 stream);
+             ? (int)mma::launch_any<kSym2, true>(q, q_lo, pv, table_rows, p,
+                                                 stream)
+             : (int)mma::launch_any<kSym, true>(q, q_lo, pv, table_rows, p,
+                                                stream);
 }

@@ -35,15 +35,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argument types (each returns cudaError_t, but
-# the *_blocks_per_sm queries, which return a count or -1)
+# the *_blocks_per_sm and *_warps queries, which return a count or -1)
 SIGNATURES = {
     # q, db, vals, ids, part_vals, part_ids, q_n, n, d, k, splits, l2, stream
     "knn_flat_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, db, buf_v, buf_i, q_n, n, d, w, r, l2, stream
     "knn_segment_topr": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, q_lo, db, scales, buf, q_n, n, d, w, r, jbits, variant, l2, stream
+    # q, q_lo, db, scales, norms, buf, q_n, n, d, w, r, jbits, variant, l2,
+    # stream
     "knn_segment_packed": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     # q, q_lo, pv, scales, ids, cells, buf, q_n, budget, table_rows, d, w,
     # r, jbits, two_level, stream
@@ -52,9 +53,13 @@ SIGNATURES = {
     ],
     # sel, q, pv, pi, sc, sims, nbrs, q_n, e, d, deg_p, n_nodes, stream
     "knn_slab_expand": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, t_jk, blosum, state, out, g, lq, lt, k, segments, gap_first,
-    # gap_ext, stream
-    "knn_sw_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, t, blosum, bound, live, counters, out, g, lq, lt, k, segments,
+    # gap_first, gap_ext, stream
+    "knn_sw_grouped": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    # g, k -> warps of kernel C's DP grid (rows of its boundary scratch)
+    "knn_sw_grouped_warps": [_I, _I],
     # x, ln, wi, wo, normed, h, out, t, d, f, eps, stream
     "knn_ffn_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # q, k, v, mask, table, out, b, h, l, stream

@@ -9,8 +9,9 @@ reference's, verbatim with their planning constants: pairs are flipped so
 the longer sequence runs along the query-row axis, grouped by row sequence,
 and packed into (Lq, Lt, S) cells of lanes (ragged lanes hold several
 targets separated by -1). Every cell then goes to `sw_scores_grouped`
-(ops/align_cuda.py): the CUDA kernel for a CUDA device, its plain PyTorch
-version on the CPU. The reference's VMEM/SMEM eligibility test and its XLA
+(ops/align_cuda.py): the CUDA kernel for a CUDA device, in as few launches
+as `iter_card_blocks` allows, and its plain PyTorch version on the CPU, in
+the reference's blocks. The reference's VMEM/SMEM eligibility test and its XLA
 fallback were TPU limits and have no counterpart here.
 
 Scoring conventions (GAP_FIRST): "mmseqs" (length-1 gap costs 11, the
@@ -278,6 +279,44 @@ def iter_align_blocks(cells: dict, g_block: int = 128):
             yield lq_b, lt_b, s_b, sweep, g_pad, block
 
 
+# int8 lane codes of one card launch at most: the card takes every group of
+# a cell in as few launches as this allows (kernel C's warps take lanes
+# from the whole launch), where the TPU's SMEM budget capped a launch at
+# 2^17 query codes
+CARD_BLOCK_BYTES = 1 << 27
+
+
+def iter_card_blocks(cells: dict, k_lanes: int = 128):
+    """Dispatch blocks of the card route, in iter_align_blocks' tuple form
+    and order: each cell's rows in chunks of as many groups as fit
+    CARD_BLOCK_BYTES of [G, k_lanes, Lt] int8 lane codes, with no padding
+    groups. Scores do not depend on the chunking: they are exact integers.
+    The sweep is None: it bounded the TPU kernel's prefix-max sweeps, and
+    neither kernel C nor its plain version needs one."""
+    for (lq_b, lt_b, s_b), rows in sorted(cells.items()):
+        g_max = max(1, CARD_BLOCK_BYTES // (k_lanes * lt_b))
+        for start in range(0, len(rows), g_max):
+            block = rows[start : start + g_max]
+            yield lq_b, lt_b, s_b, None, len(block), block
+
+
+def lane_codes(block, lq_b: int, lt_b: int, g_pad: int, k_lanes: int):
+    """(q_codes [g_pad, lq_b] int32, t_codes [g_pad, k_lanes, lt_b] int8)
+    of one dispatch block: -1 pads, and -1 separators between the targets
+    of a ragged lane."""
+    q_codes = np.full((g_pad, lq_b), -1, dtype=np.int32)
+    t_codes = np.full((g_pad, k_lanes, lt_b), -1, dtype=np.int8)
+    for r, (row_seq, row_lanes) in enumerate(block):
+        q_codes[r] = encode_sequence(row_seq, lq_b)
+        for l, lane in enumerate(row_lanes):
+            pos = 0
+            for (lane_seq, _, _) in lane:
+                ll = len(lane_seq)
+                t_codes[r, l, pos : pos + ll] = encode_sequence(lane_seq, ll)
+                pos += ll + 1  # -1 separator stays from the fill
+    return q_codes, t_codes
+
+
 def align_hits(
     queries: list,
     hits: list,  # hits[i] = list of target strings for queries[i]
@@ -291,9 +330,10 @@ def align_hits(
     """Align each query against its own hit list (the kNN-rescoring shape,
     reference: pfam/proteins.py:140-141's `mmseqs align` step). Returns
     (scores, e_values): lists of [len(hits[i])] float32 arrays aligned with
-    the hit order. Packing and dispatch order follow the reference's
-    align_hits; `device` picks the kernel ("cuda") or its plain version
-    ("cpu"). E-values use the TRUE query length regardless of orientation.
+    the hit order. Packing follows the reference's align_hits; `device`
+    picks the kernel ("cuda", blocks of iter_card_blocks) or its plain
+    version ("cpu", the reference's blocks of iter_align_blocks). E-values
+    use the TRUE query length regardless of orientation.
     """
     from .align_cuda import sw_scores_grouped
 
@@ -305,31 +345,22 @@ def align_hits(
 
     cells = plan_align_cells(queries, hits, k_lanes, g_block, bucket)
     scores = [np.zeros(len(row), dtype=np.float32) for row in hits]
+    # the plain version keeps the reference's blocks; the card takes a
+    # cell's groups in as few launches as CARD_BLOCK_BYTES allows
+    blocks = (iter_card_blocks(cells, k_lanes) if device.type == "cuda"
+              else iter_align_blocks(cells, g_block))
 
     # dispatch every block first, read results back after: one wait for
     # the device instead of one per block
     pending = []
-    for lq_b, lt_b, s_b, sweep, g_pad, block in iter_align_blocks(
-        cells, g_block
-    ):
-        q_codes = np.full((g_pad, lq_b), -1, dtype=np.int32)
-        t_codes = np.full((g_pad, k_lanes, lt_b), -1, dtype=np.int32)
-        for r, (row_seq, row_lanes) in enumerate(block):
-            q_codes[r] = encode_sequence(row_seq, lq_b)
-            for l, lane in enumerate(row_lanes):
-                pos = 0
-                for (lane_seq, _, _) in lane:
-                    ll = len(lane_seq)
-                    t_codes[r, l, pos : pos + ll] = encode_sequence(
-                        lane_seq, ll
-                    )
-                    pos += ll + 1  # -1 separator stays from the fill
+    for lq_b, lt_b, s_b, sweep, g_pad, block in blocks:
+        q_codes, t_codes = lane_codes(block, lq_b, lt_b, g_pad, k_lanes)
         out = sw_scores_grouped(
             torch.from_numpy(q_codes).to(device),
             torch.from_numpy(t_codes).to(device),
             convention=convention,
             segments=s_b,
-            max_seg_len=sweep if s_b > 1 else None,
+            max_seg_len=sweep if s_b > 1 else None,  # None on the card
         )
         pending.append((out, block, s_b))
 

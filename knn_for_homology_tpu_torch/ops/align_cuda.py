@@ -130,17 +130,25 @@ def sw_scores_grouped(
     if lq == 0 or lt == 0:
         out.zero_()
         return out[:, 0] if segments == 1 else out
-    # codes outside the alphabet clip to its last letter, negatives are
-    # pads (as in the reference); int8 target codes in [G, Lt, K] layout so
-    # neighbouring threads (lanes) read neighbouring bytes
+    # codes outside the alphabet clip to its last letter and negatives are
+    # pads (as in the reference); the kernel does both itself, so int8
+    # target codes in [G, K, Lt] (align_hits builds them so) go as they are
     q = q_codes.clamp(-1, N_AA - 1).to(torch.int32).contiguous()
-    t = t_codes.clamp(-1, N_AA - 1).to(torch.int8).transpose(1, 2).contiguous()
+    t = (t_codes if t_codes.dtype == torch.int8
+         else t_codes.clamp(-1, N_AA - 1).to(torch.int8)).contiguous()
     blosum = torch.as_tensor(BLOSUM62, device=dev).to(torch.int32).contiguous()
-    state = torch.empty((g_n, lt, k_n, 2), dtype=torch.int32, device=dev)
-    code = _build.library().knn_sw_grouped(
-        q.data_ptr(), t.data_ptr(), blosum.data_ptr(), state.data_ptr(),
-        out.data_ptr(), g_n, lq, lt, k_n, segments,
-        int(GAP_FIRST[convention]), int(GAP_EXT), _build.stream_ptr(dev),
+    lib = _build.library()
+    warps = lib.knn_sw_grouped_warps(g_n, k_n)
+    if warps < 1:
+        raise RuntimeError("knn_sw_grouped_warps: the card cannot be queried")
+    bound = torch.empty((warps, lt, 2), dtype=torch.int32, device=dev)
+    live = torch.empty((g_n * k_n, 2), dtype=torch.int32, device=dev)
+    counters = torch.zeros(2, dtype=torch.int32, device=dev)
+    code = lib.knn_sw_grouped(
+        q.data_ptr(), t.data_ptr(), blosum.data_ptr(), bound.data_ptr(),
+        live.data_ptr(), counters.data_ptr(), out.data_ptr(), g_n, lq, lt,
+        k_n, segments, int(GAP_FIRST[convention]), int(GAP_EXT),
+        _build.stream_ptr(dev),
     )
     _build.check(code, "knn_sw_grouped")
     sw_scores_grouped.launches += 1

@@ -35,12 +35,12 @@ INT32_MIN = -(2**31)
 # per query block; the epilogue's int64 sort keys add as much again.
 CANDIDATE_BYTES = 1 << 30
 
-# queries per CUDA block of kernel B (csrc/segment_topr.cu: BM), of
-# kernels D/E at every R (csrc/segment_packed.cu: BM = 16 * TM) and of the
-# sym storages' kernel F (one wgmma warpgroup, sym::BM)
+# queries per CUDA block of kernel B (csrc/segment_topr.cu: BM), of the
+# packed kernels' tensor-core route (D bf16, E, F: one wgmma warpgroup,
+# csrc/segment_packed.cu mma::BM) and of D's fp32 FFMA route (BM = 16 * TM)
 SEGMENT_TOPR_QUERIES = 32
-SEGMENT_PACKED_QUERIES = 32
-SYM_PACKED_QUERIES = 64
+SEGMENT_PACKED_QUERIES = 64
+F32_PACKED_QUERIES = 32
 
 
 def _ordered_int(u: torch.Tensor) -> torch.Tensor:
@@ -128,9 +128,10 @@ def plan_fingerprint(
     JSON (port of the reference's plan_fingerprint). W and R equal the
     reference's for every input. `query_block` is this port's own: the
     queries one CUDA block of the kernel owns (the reference reported its
-    VMEM query block there, which does not change results). `d` and
-    `itemsize` sized only that VMEM block, so they are unused here."""
-    del d, itemsize
+    VMEM query block there, which does not change results); `itemsize` 4
+    (fp32 native) picks D's FFMA route. `d` sized only the reference's
+    VMEM block, so it is unused here."""
+    del d
     k_eff = min(k, n)
     db_tile, r_slots = plan(
         n, k_eff, default_db_tile(k_eff, n, exact), exact=exact,
@@ -139,7 +140,7 @@ def plan_fingerprint(
     return {
         "db_tile": db_tile,
         "query_block": SEGMENT_TOPR_QUERIES if exact
-        else SYM_PACKED_QUERIES if storage in ("sq8-sym", "sq8-sym2")
+        else F32_PACKED_QUERIES if storage == "native" and itemsize == 4
         else SEGMENT_PACKED_QUERIES,
         "r_slots": r_slots,
         "storage": storage,

@@ -11,9 +11,11 @@ certificate. Decoded values carry the truncation (< 2^jbits float32 ulps);
 ids are exact for the candidates kept.
 
 Storages:
-  * "native"   — D: fp32 or bf16 db and queries, fp32 sums;
+  * "native"   — D: fp32 or bf16 db and queries, fp32 sums (fp32 on FFMA,
+                 bf16 on bf16 `wgmma`);
   * "sq8"      — E: int8 db rows + per-row f32 scales (FAISS SQ8 storage),
-                 queries cast to bf16;
+                 queries cast to bf16 (the rows widen to bf16 exactly for
+                 bf16 `wgmma`);
   * "sq8-sym"  — F: queries quantised to int8 too, int8 x int8 -> int32
                  (ip / cosine only; l2 falls back to "sq8");
   * "sq8-sym2" — F: plus the residual query q_lo = round((q/qsc - q8)·128)
@@ -224,16 +226,17 @@ def segment_packed_kernel(
         )
     n, d = db.shape
     q_n = queries.shape[0]
-    if storage in SYM_STORAGES and d % 16:
-        # the int8 kernel's TMA reads rows of whole 16 bytes; zero columns
-        # add 0
+    f32 = storage == "native" and db.dtype == torch.float32
+    if not f32 and d % 16:
+        # the tensor-core kernels' TMA reads rows of whole 16 bytes; zero
+        # columns add 0 to every dot and norm
         pad = (0, -d % 16)
         queries, db = (torch.nn.functional.pad(t, pad) for t in (queries, db))
         q_lo = None if q_lo is None else torch.nn.functional.pad(q_lo, pad)
         d = db.shape[1]
     queries, db = queries.contiguous(), db.contiguous()
     if storage == "native":
-        variant = 1 if db.dtype == torch.bfloat16 else 0
+        variant = 0 if f32 else 1
     else:
         variant = _VARIANT[storage]
         scales = scales.contiguous()
@@ -242,9 +245,14 @@ def segment_packed_kernel(
                       device=db.device)
     if q_n == 0:
         return buf
+    # l2 on the bf16 tensor-core route: the kernel's squared row norms of
+    # the queries, then of the db rows
+    norms = (torch.empty(q_n + n, dtype=torch.float32, device=db.device)
+             if metric == "l2" and variant in (1, 2) else None)
     code = _build.library().knn_segment_packed(
         queries.data_ptr(), None if q_lo is None else q_lo.data_ptr(),
         db.data_ptr(), None if scales is None else scales.data_ptr(),
+        None if norms is None else norms.data_ptr(),
         buf.data_ptr(), q_n, n, d, db_tile, r_slots, pass_bits(n, db_tile),
         variant, int(metric == "l2"), _build.stream_ptr(db.device),
     )

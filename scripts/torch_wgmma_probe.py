@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Kernels G (csrc/ffn_fused.cu) and F / J (the sym path of
-csrc/segment_packed.cu) of the PyTorch port on one NVIDIA GPU: what ptxas
-reports for them, which tensor-core instructions their SASS holds (HGMMA:
-bf16 wgmma, IGMMA: int8 wgmma), each against its plain version on a few
-ragged shapes, and their times at the main paths' shapes beside their
-bounds and the PyTorch yardsticks (G: the two bf16 torch.matmul products;
-F: torch._int_mm, the product alone).
+"""Kernels G (csrc/ffn_fused.cu), D, E, F and J (the tensor-core route of
+csrc/segment_packed.cu) and C (csrc/sw_grouped.cu) of the PyTorch port on
+one NVIDIA GPU: what ptxas reports for them, which tensor-core and DPX
+instructions their SASS holds (HGMMA: bf16 wgmma, IGMMA: int8 wgmma; C's
+DPX min/max ops, VIMNMX / VIMNMX3 / VIADDMNMX as cuobjdump prints them),
+each against its plain version on a few ragged shapes, and their times at
+the main paths' shapes beside their bounds and the PyTorch yardsticks (G:
+the two bf16 torch.matmul products; F: torch._int_mm, the product alone).
 
     python3 scripts/torch_wgmma_probe.py [--no-ptxas] [--no-times]
 
-Checks: G within chip_smoke.py's BF16_TOL, F and J buffers equal to plain. Times are
-chip_smoke.py's cuda_ms (median of 5 windows of 10 calls) and the device
-time per call under torch.profiler, split by kernel name. Exits non-zero on
-any mismatch.
+Checks: G within chip_smoke.py's BF16_TOL, D, E, F and J buffers equal to
+plain on integer data. Times are chip_smoke.py's cuda_ms (median of 5
+windows of 10 calls) and the device time per call under torch.profiler,
+split by kernel name. Exits non-zero on any mismatch.
 """
 
 import argparse
@@ -27,11 +28,11 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import BF16_TOL, PEAK_OPS, cuda_ms  # noqa: E402
 
-UNITS = ("ffn_fused.cu", "segment_packed.cu")
+UNITS = ("ffn_fused.cu", "segment_packed.cu", "sw_grouped.cu")
 
 
 def ptxas_report():
-    """ptxas -v of G's and F/J's units, compiled side by side."""
+    """ptxas -v of G's, D-F/J's and C's units, compiled side by side."""
     from knn_for_homology_tpu_torch.ops import _build
 
     nvcc = _build._nvcc()
@@ -51,8 +52,15 @@ def ptxas_report():
         assert proc.returncode == 0, out
 
 
+# the variant template argument of segment_packed_mma<BN, V, kInd> in a
+# mangled name: 1 D bf16, 2 E, 3 F / J sym, 4 F / J sym2
+VARIANT_OF = {"ELi1ELb": "D", "ELi2ELb": "E", "ELi3ELb": "F/J sym",
+              "ELi4ELb": "F/J sym2"}
+
+
 def sass_report(lib_path):
-    """HGMMA / IGMMA counts per kernel in the built library's SASS."""
+    """Per kernel of the built library's SASS: HGMMA / IGMMA counts, and
+    the counts of every integer min/max opcode (the DPX ones included)."""
     from knn_for_homology_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -64,12 +72,17 @@ def sass_report(lib_path):
         if m:
             fn = m.group(1)
             continue
-        for op in ("HGMMA", "IGMMA"):
-            if fn and op in line:
-                counts.setdefault(fn, {}).setdefault(op, 0)
-                counts[fn][op] += 1
+        m = re.search(r"\*/\s+(?:@!?P\w+\s+)?([A-Z0-9_.]+)", line)
+        if not (fn and m):
+            continue
+        op = m.group(1)
+        key = op.split(".")[0] if "GMMA" in op else op
+        if key in ("HGMMA", "IGMMA") or "MNMX" in op:
+            c = counts.setdefault(fn, {})
+            c[key] = c.get(key, 0) + 1
     for fn, c in sorted(counts.items()):
-        print(f"sass {fn}: {c}", flush=True)
+        label = next((v for k, v in VARIANT_OF.items() if k in fn), "")
+        print(f"sass {fn} {label}: {c}", flush=True)
     return counts
 
 
@@ -147,8 +160,14 @@ def main():
     print(f"build {_build.timed_build():.1f} s", flush=True)
     sass = sass_report(_build.library_path())
     assert any("gemm_kernel" in fn and "HGMMA" in c for fn, c in sass.items())
-    assert any("segment_packed_sym" in fn and "IGMMA" in c
-               for fn, c in sass.items())
+    for key, op in (("ELi1ELb", "HGMMA"), ("ELi2ELb", "HGMMA"),
+                    ("ELi3ELb", "IGMMA"), ("ELi4ELb", "IGMMA")):
+        assert any("segment_packed_mma" in fn and key in fn and op in c
+                   for fn, c in sass.items()), (key, op)
+    dpx = {op: n for fn, c in sass.items() if "sw_wavefront" in fn
+           for op, n in c.items() if op.startswith("VI")}
+    print(f"sass sw_wavefront DPX: {dpx}", flush=True)
+    assert dpx, "no DPX instruction in kernel C's SASS"
 
     ok = True
     for t, d, f in ((1, 128, 256), (65, 256, 384), (129, 1024, 512),
@@ -182,6 +201,26 @@ def main():
         print(f"F {storage} Q={q_n} R={r}: {'equal' if same else 'MISMATCH'}",
               flush=True)
         ok &= same
+    # D (bf16) and E on bf16 wgmma: resident rows at d = 48, streamed
+    # 64-lane tiles with slots in device memory at d = 1024, R = 30
+    for q_n, storage, metric, d, r in ((1, "bf16", "ip", 48, 7),
+                                       (65, "sq8", "l2", 48, 7),
+                                       (700, "bf16", "l2", 1024, 30),
+                                       (2200, "sq8", "ip", 1024, 7),
+                                       (300, "sq8", "l2", 1024, 30)):
+        db = i8(5000, d, lo=-3, hi=4)
+        q = i8(q_n, d, lo=-3, hi=4).to(torch.bfloat16)
+        if storage == "bf16":
+            a = (q, db.to(torch.bfloat16), 256, r, metric, "native")
+        else:
+            sc = torch.from_numpy(rng.uniform(1e-3, 1e-2, 5000).astype(
+                np.float32)).to("cuda")
+            a = (q, i8(5000, d), 256, r, metric, "sq8", sc)
+        same = torch.equal(packed_cuda.segment_packed_kernel(*a),
+                           packed_cuda.segment_packed_plain(*a))
+        print(f"{'D' if storage == 'bf16' else 'E'} {metric} Q={q_n} d={d}"
+              f" R={r}: {'equal' if same else 'MISMATCH'}", flush=True)
+        ok &= same
     if not ok:
         raise SystemExit("mismatch")
     if args.no_times:
@@ -212,6 +251,18 @@ def main():
     db = i8(n, 1024)
     sc = torch.from_numpy(rng.uniform(1e-3, 1e-2, n).astype(np.float32)).to(
         "cuda")
+    # D (bf16) and E at phase 3's shape: 1024 queries, W = 256, R = 7
+    qb = torch.randn(1024, 1024, device="cuda").to(torch.bfloat16)
+    for name, a in (("D", (qb, db.to(torch.bfloat16), 256, 7, "cosine")),
+                    ("E", (qb, db, 256, 7, "cosine", "sq8", sc))):
+        ms = cuda_ms(lambda: packed_cuda.segment_packed_kernel(*a))
+        flop = 2 * 1024 * n * 1024
+        print(json.dumps(dict(
+            kernel=name, queries=1024, ms=ms, tflops=flop / ms / 1e9,
+            peak_share=flop / (ms * 1e-3) / PEAK_OPS["bf16"],
+            device=device_ms(lambda: packed_cuda.segment_packed_kernel(*a)))),
+            flush=True)
+    del qb
     for q_n in (1024, 8192):
         q = i8(q_n, 1024)
         lo = i8(q_n, 1024, lo=-64, hi=65)

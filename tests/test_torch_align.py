@@ -5,6 +5,7 @@ host planners emitting identical cells, and align_hits giving equal scores
 and E-values within rtol 1e-6 (XLA's and torch's float32 exp differ in the
 last ulp)."""
 
+import functools
 import re
 from pathlib import Path
 
@@ -180,6 +181,78 @@ def test_align_hits_matches_jax():
         np.testing.assert_array_equal(gs, ws)
         np.testing.assert_allclose(ge, we, rtol=1e-6)
         assert ge.dtype == np.float32
+
+
+def _family_pairs(seed=3, n_fam=6, members=14):
+    """make_clustered-style families: each family's sequences are mutated
+    copies of one ancestor (30% substitutions, ends trimmed), and each
+    family's first member is a query whose hits are the other 13; plus one
+    long query with 150 short hits, whose group packs ragged lanes."""
+    rng = np.random.RandomState(seed)
+    queries, hits = [], []
+    for _ in range(n_fam):
+        n = int(rng.randint(30, 110))
+        ancestor = rng.choice(list(AAS), n)
+        family = []
+        for _ in range(members):
+            seq = ancestor.copy()
+            mutate = rng.rand(n) < 0.3
+            seq[mutate] = rng.choice(list(AAS), int(mutate.sum()))
+            lo, hi = rng.randint(0, 5, 2)
+            family.append("".join(seq[lo : n - hi]))
+        queries.append(family[0])
+        hits.append(family[1:])
+    queries.append("".join(rng.choice(list(AAS), 120)))
+    hits.append(["".join(rng.choice(list(AAS), int(n)))
+                 for n in rng.randint(8, 30, size=150)])
+    return queries, hits
+
+
+@functools.lru_cache(maxsize=None)
+def _family_reference():
+    """(queries, hits, JAX align_hits scores and E-values, the port's
+    scores through the reference's blocks), once per process."""
+    queries, hits = _family_pairs()
+    want_s, want_e = jalign.align_hits(queries, hits)
+    plain_s, _ = talign.align_hits(queries, hits, device="cpu")
+    return queries, hits, want_s, want_e, plain_s
+
+
+@pytest.mark.parametrize("max_bytes", [talign.CARD_BLOCK_BYTES, 3 * 128 * 128])
+def test_card_plan_scores_equal_jax_plan(monkeypatch, max_bytes):
+    # the card's blocks (a cell's groups in as few launches as max_bytes of
+    # int8 lane codes allow, no padding groups; here also three groups a
+    # launch) through the plain version score every pair as the JAX plan's
+    # blocks and the JAX align_hits do: the scores are exact integers
+    queries, hits, want_s, want_e, plain_s = _family_reference()
+    monkeypatch.setattr(talign, "CARD_BLOCK_BYTES", max_bytes)
+    cells = talign.plan_align_cells(queries, hits)
+    assert {key[2] > 1 for key in cells} == {True, False}
+    card = list(talign.iter_card_blocks(cells, 128))
+    jax_blocks = list(talign.iter_align_blocks(cells))
+    assert [b[4] for b in card] != [b[4] for b in jax_blocks]
+    assert sum(b[4] for b in card) == sum(len(rows) for rows in cells.values())
+    monkeypatch.setattr(talign, "iter_align_blocks", lambda cells, g_block:
+                        talign.iter_card_blocks(cells, 128))
+    got_s, got_e = talign.align_hits(queries, hits, device="cpu")
+    assert (np.concatenate(want_s) > 0).mean() > 0.9
+    for gs, ps, ws, ge, we in zip(got_s, plain_s, want_s, got_e, want_e):
+        np.testing.assert_array_equal(gs, ws)
+        np.testing.assert_array_equal(ps, ws)
+        np.testing.assert_allclose(ge, we, rtol=1e-6)
+
+
+def test_lane_codes_int8_layout():
+    # [G, K, Lt] int8: a lane's targets contiguous, -1 separators and pads
+    block = [("ACDE", [[("KLM", 0, 0), ("W", 0, 1)], [("PQRS", 1, 0)]])]
+    q, t = talign.lane_codes(block, 8, 10, 2, 3)
+    assert q.dtype == np.int32 and q.shape == (2, 8)
+    assert t.dtype == np.int8 and t.shape == (2, 3, 10)
+    np.testing.assert_array_equal(q[0], talign.encode_sequence("ACDE", 8))
+    enc = lambda x: list(talign.encode_sequence(x, len(x)))  # noqa: E731
+    assert list(t[0, 0]) == enc("KLM") + [-1] + enc("W") + [-1] * 5
+    assert list(t[0, 1]) == enc("PQRS") + [-1] * 6
+    assert (t[0, 2] == -1).all() and (t[1] == -1).all() and (q[1] == -1).all()
 
 
 def test_e_values_float32():

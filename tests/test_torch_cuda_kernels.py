@@ -159,6 +159,73 @@ def test_sw_kernel_bit_equal_to_plain(cuda, convention, segments):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+def _sw_edge_case(case, seed=21):
+    """(q [G, Lq], t [G, K, Lt], segments) of one edge of kernel C's warp
+    wavefront: 256-row strips (32 threads x 8 rows), live-lane lists,
+    separators, pads."""
+    rng = np.random.RandomState(seed)
+
+    def codes(n):
+        return encode_sequence("".join(rng.choice(list(AAS), n)), n)
+
+    lq_eff, g, k, lt, segments = {
+        "lq1": (1, 3, 6, 40, 1), "strip": (256, 2, 5, 90, 1),
+        "strip+1": (257, 2, 5, 90, 1), "lq2048": (2048, 1, 4, 160, 1),
+        "lq3500": (3500, 1, 3, 120, 1), "empty_lanes": (300, 4, 9, 70, 1),
+        "pad_row": (600, 2, 4, 80, 1), "lt1": (180, 2, 5, 1, 1),
+        "ragged_strips": (700, 2, 6, 240, 8), "seg63": (300, 2, 3, 190, 63),
+    }[case]
+    lq = -(-lq_eff // 128) * 128  # the planner's bucket
+    q = np.full((g, lq), -1, np.int32)
+    t = np.full((g, k, lt), -1, np.int32)
+    for gi in range(g):
+        q[gi, :lq_eff] = codes(lq_eff)
+        for ki in range(k):
+            if segments == 1:
+                n = lt if case == "lt1" else int(rng.randint(lt // 2, lt + 1))
+                t[gi, ki, :n] = codes(n)
+                continue
+            pos = 0
+            lo, hi = (2, 5) if segments == 63 else (10, 50)
+            while True:
+                n = int(rng.randint(lo, hi))
+                if pos + n > lt:
+                    break
+                t[gi, ki, pos : pos + n] = codes(n)
+                pos += n + 1
+    if case == "empty_lanes":
+        t[:, 1::2] = -1  # empty lanes between live ones
+        t[2] = -1  # an all-empty group
+    if case == "pad_row":
+        q[:, [0, 255, 256, 400]] = -1  # interior query pad rows, at a strip edge
+        t[0, 1, 7] = -1  # an interior target pad column
+    if segments == 63:
+        assert ((t[..., :-1] >= 0) & (t[..., 1:] < 0)).sum(-1).max() >= 33
+    return torch.from_numpy(q), torch.from_numpy(t), segments
+
+
+@pytest.mark.parametrize("convention", ["blast", "mmseqs"])
+@pytest.mark.parametrize("case", [
+    "lq1", "strip", "strip+1", "lq2048", "lq3500", "empty_lanes", "pad_row",
+    "lt1", "ragged_strips", "seg63"])
+def test_sw_kernel_edges_bit_equal(cuda, convention, case):
+    # Lq = 1; a query of exactly one strip and one row past it; 2048 and
+    # 3500 rows (8 and 14 strips through the boundary scratch); empty lanes
+    # between live ones and an all-empty group (nothing in the live list);
+    # interior query pad rows at a strip edge; Lt = 1; ragged lanes across
+    # strips; 63 segments
+    q, t, segments = _sw_edge_case(case)
+    kw = dict(convention=convention, segments=segments)
+    for codes in (t, t.to(torch.int8)):  # any integer dtype, int8 as is
+        got = align_cuda.sw_scores_grouped(q.to(cuda), codes.to(cuda), **kw)
+        want = align_cuda.sw_scores_grouped_plain(q, t, **kw)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert float(want.max()) > 0
+    if case == "empty_lanes":
+        assert float(want[:, 1::2].abs().max()) == 0.0
+        assert float(want[2].abs().max()) == 0.0
+
+
 def _packed_operands(seed, storage, n, q, d, device):
     """Integer-valued operands of one packed storage: every dot is exact,
     and the scale multiplies once, so kernel and plain buffers must be
@@ -222,6 +289,30 @@ def test_packed_sym_tile_edges(cuda, storage, r_slots, d, q_n):
     )
     want = packed_cuda.segment_packed_plain(
         db_tile=256, r_slots=r_slots, metric="ip", **ops
+    )
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("q_n", [1, 63, 65, 2200])
+@pytest.mark.parametrize("d,r_slots", [(40, 7), (1000, 7), (40, 30),
+                                       (1000, 30)])
+@pytest.mark.parametrize("storage,metric", [
+    ("bf16", "ip"), ("bf16", "l2"), ("sq8", "ip"), ("sq8", "l2")])
+def test_packed_bf16_tile_edges(cuda, storage, metric, d, r_slots, q_n):
+    # kernels D (bf16) and E on bf16 wgmma at the 64-query tile's edges and
+    # past 32 query tiles; d = 40 pads to 48 (one box) and keeps the query
+    # rows resident (32- or 16-lane tiles), d = 1000 pads to 1008 (16 bf16
+    # boxes: resident at R = 7, streamed 64-lane tiles with the slots in
+    # device memory at R = 30); E widens its int8 boxes to bf16 on the way
+    ops = _packed_operands(15, storage, 5000, q_n, d, cuda)
+    name = packed_cuda.KERNEL_OF[ops["storage"]]
+    before = packed_cuda.segment_packed_kernel.launches[name]
+    got = packed_cuda.segment_packed_kernel(
+        db_tile=256, r_slots=r_slots, metric=metric, **ops
+    )
+    assert packed_cuda.segment_packed_kernel.launches[name] == before + 1
+    want = packed_cuda.segment_packed_plain(
+        db_tile=256, r_slots=r_slots, metric=metric, **ops
     )
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
