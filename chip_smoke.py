@@ -1271,7 +1271,7 @@ def main() -> None:
         picked = classic[:3] + ragged[:1]
         c_err, c_ms, c_plain_ms, c_cells, c_bytes = 0.0, 0.0, 0.0, 0, 0
         for lq_b, lt_b, s_b, sweep, g_pad, block in picked:
-            qc, tc = align_ops.lane_codes(block, lq_b, lt_b, g_pad, 128)
+            qc, tc = align_ops.lane_codes(block, lq_b, lt_b, g_pad)
             qd, td = torch.from_numpy(qc).to(device), torch.from_numpy(tc).to(device)
             for conv in ("mmseqs", "blast"):
                 kw = dict(convention=conv, segments=s_b,
@@ -1295,7 +1295,7 @@ def main() -> None:
             c_cells += cells
             c_bytes += tensor_bytes(qd, td, k_out)
             log(f"phase 3 kernel C sw_grouped block G={g_pad} Lq={lq_b}"
-                f" K=128 Lt={lt_b} S={s_b}: bit-equal (both conventions),"
+                f" K={tc.shape[1]} Lt={lt_b} S={s_b}: bit-equal (both conventions),"
                 f" {ms:.3f} ms vs plain {plain_ms:.3f} ms, {cells} real"
                 f" cells, {cells / ms / 1e6:.1f} GCUPS")
         c_bound = bound(SW_OPS_PER_CELL * c_cells, "int32", c_bytes)

@@ -289,7 +289,8 @@ CARD_BLOCK_BYTES = 1 << 27
 def iter_card_blocks(cells: dict, k_lanes: int = 128):
     """Dispatch blocks of the card route, in iter_align_blocks' tuple form
     and order: each cell's rows in chunks of as many groups as fit
-    CARD_BLOCK_BYTES of [G, k_lanes, Lt] int8 lane codes, with no padding
+    CARD_BLOCK_BYTES of [G, k_lanes, Lt] int8 lane codes (at most; see
+    lane_codes), with no padding
     groups. Scores do not depend on the chunking: they are exact integers.
     The sweep is None: it bounded the TPU kernel's prefix-max sweeps, and
     neither kernel C nor its plain version needs one."""
@@ -300,10 +301,14 @@ def iter_card_blocks(cells: dict, k_lanes: int = 128):
             yield lq_b, lt_b, s_b, None, len(block), block
 
 
-def lane_codes(block, lq_b: int, lt_b: int, g_pad: int, k_lanes: int):
-    """(q_codes [g_pad, lq_b] int32, t_codes [g_pad, k_lanes, lt_b] int8)
-    of one dispatch block: -1 pads, and -1 separators between the targets
-    of a ragged lane."""
+def lane_codes(block, lq_b: int, lt_b: int, g_pad: int):
+    """(q_codes [g_pad, lq_b] int32, t_codes [g_pad, K, lt_b] int8) of one
+    dispatch block: -1 pads, and -1 separators between the targets of a
+    ragged lane. K is the most lanes a group of the block fills: the
+    planner's k_lanes-wide rows end in empty lanes (a flip group often
+    holds one target), which score 0 and are never read back, so they are
+    not built or copied."""
+    k_lanes = max(len(row_lanes) for _, row_lanes in block)
     q_codes = np.full((g_pad, lq_b), -1, dtype=np.int32)
     t_codes = np.full((g_pad, k_lanes, lt_b), -1, dtype=np.int8)
     for r, (row_seq, row_lanes) in enumerate(block):
@@ -354,7 +359,7 @@ def align_hits(
     # the device instead of one per block
     pending = []
     for lq_b, lt_b, s_b, sweep, g_pad, block in blocks:
-        q_codes, t_codes = lane_codes(block, lq_b, lt_b, g_pad, k_lanes)
+        q_codes, t_codes = lane_codes(block, lq_b, lt_b, g_pad)
         out = sw_scores_grouped(
             torch.from_numpy(q_codes).to(device),
             torch.from_numpy(t_codes).to(device),

@@ -243,16 +243,19 @@ def test_card_plan_scores_equal_jax_plan(monkeypatch, max_bytes):
 
 
 def test_lane_codes_int8_layout():
-    # [G, K, Lt] int8: a lane's targets contiguous, -1 separators and pads
-    block = [("ACDE", [[("KLM", 0, 0), ("W", 0, 1)], [("PQRS", 1, 0)]])]
-    q, t = talign.lane_codes(block, 8, 10, 2, 3)
-    assert q.dtype == np.int32 and q.shape == (2, 8)
-    assert t.dtype == np.int8 and t.shape == (2, 3, 10)
+    # [G, K, Lt] int8: a lane's targets contiguous, -1 separators and pads;
+    # K is the fullest group's lane count, g_pad rows past the block pad
+    block = [("ACDE", [[("KLM", 0, 0), ("W", 0, 1)], [("PQRS", 1, 0)]]),
+             ("MKV", [[("GG", 2, 0)]])]
+    q, t = talign.lane_codes(block, 8, 10, 3)
+    assert q.dtype == np.int32 and q.shape == (3, 8)
+    assert t.dtype == np.int8 and t.shape == (3, 2, 10)
     np.testing.assert_array_equal(q[0], talign.encode_sequence("ACDE", 8))
     enc = lambda x: list(talign.encode_sequence(x, len(x)))  # noqa: E731
     assert list(t[0, 0]) == enc("KLM") + [-1] + enc("W") + [-1] * 5
     assert list(t[0, 1]) == enc("PQRS") + [-1] * 6
-    assert (t[0, 2] == -1).all() and (t[1] == -1).all() and (q[1] == -1).all()
+    assert list(t[1, 0]) == enc("GG") + [-1] * 8 and (t[1, 1] == -1).all()
+    assert (t[2] == -1).all() and (q[2] == -1).all()
 
 
 def test_e_values_float32():
