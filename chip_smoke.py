@@ -63,7 +63,10 @@ function. Every kernel's line carries its bound: the least time the card could t
 its operations and bytes (PEAK_OPS, HBM_BYTES_PER_S); C's counts the real
 DP cells of its four phase-3 blocks (sum of len(q) * len(t) over their
 pairs) at the int32 rate, and its entry adds their GCUPS (giga cell
-updates per second).
+updates per second). C's phase-3 blocks are the main path's own: the card
+plan (iter_card_blocks) of every test query against its family's first 13
+train members, so a block holds more lanes than the kernel's persistent
+grid holds warps, as on the main path.
 Times are medians of five timed windows (cuda_ms), after a two-second
 warm-up of the card.
 
@@ -1248,34 +1251,40 @@ def main() -> None:
 
         check_packed_kernels(db, q_all[:1024].contiguous(), kernels)
 
-        # planner blocks from the main path's own mix (each test query
-        # against its family's first 13 train members), plus one 700-aa
-        # query with 300 short hits, which packs ragged lanes
+        # the card's blocks (iter_card_blocks, as align_hits on the card)
+        # of the main path's own mix: every test query against its family's
+        # first 13 train members, plus one 700-aa query with 300 short hits,
+        # which packs ragged lanes. Picked: the block with the most lanes,
+        # the two with the most real cells (three 256-row strips and more),
+        # and the ragged block; each of the first three holds more lanes
+        # than the persistent grid has warps, so warps take lane after lane
         rng = np.random.RandomState(args.seed + 1)
-        queries = list(test_seqs[:256])
+        queries = list(test_seqs)
         hits = [train_seqs[i * FAMILY_TRAIN : i * FAMILY_TRAIN + HITS]
-                for i in range(256)]
+                for i in range(N_TEST)]
         queries.append(max(test_seqs, key=len)[:700])
         hits.append([s[: rng.randint(20, 80)] for s in train_seqs[:300]])
         cells = align_ops.plan_align_cells(queries, hits)
-        blocks = list(align_ops.iter_align_blocks(cells))
+        blocks = list(align_ops.iter_card_blocks(cells))
+        lanes_of = lambda b: b[4] * max(len(ln) for _, ln in b[5])  # noqa: E731
+        classic = [b for b in blocks if b[2] == 1]
         ragged = [b for b in blocks if b[2] > 1]
-        # the largest classic blocks up to G=128, Lq=Lt=512 (the plain
-        # version's row loop is the slow side of the comparison)
-        classic = sorted(
-            (b for b in blocks
-             if b[2] == 1 and b[0] * b[1] * b[4] <= 128 * 512 * 512),
-            key=lambda b: -b[0] * b[1] * b[4],
-        )
         assert ragged, "the workload must plan a ragged block"
-        picked = classic[:3] + ragged[:1]
+        widest = max(classic, key=lanes_of)
+        picked = [widest] + sorted(
+            (b for b in classic if b is not widest),
+            key=lambda b: -real_cells(b[5]),
+        )[:2] + [max(ragged, key=lanes_of)]
+        warps = _build.library().knn_sw_grouped_warps
         c_err, c_ms, c_plain_ms, c_cells, c_bytes = 0.0, 0.0, 0.0, 0, 0
-        for lq_b, lt_b, s_b, sweep, g_pad, block in picked:
+        outnumbered = 0  # blocks of more lanes than the grid's warps
+        for lq_b, lt_b, s_b, _, g_pad, block in picked:
             qc, tc = align_ops.lane_codes(block, lq_b, lt_b, g_pad)
             qd, td = torch.from_numpy(qc).to(device), torch.from_numpy(tc).to(device)
+            lanes, grid = g_pad * tc.shape[1], warps(g_pad, tc.shape[1])
+            outnumbered += lanes > grid
             for conv in ("mmseqs", "blast"):
-                kw = dict(convention=conv, segments=s_b,
-                          max_seg_len=sweep if s_b > 1 else None)
+                kw = dict(convention=conv, segments=s_b)
                 k_out = align_cuda.sw_scores_grouped(qd, td, **kw)
                 p_out = align_cuda.sw_scores_grouped_plain(qd, td, **kw)
                 assert torch.equal(k_out, p_out), (
@@ -1284,10 +1293,9 @@ def main() -> None:
                 )
                 assert float(k_out.max()) > 0
                 c_err = max(c_err, float((k_out - p_out).abs().max()))
-            kw = dict(convention="mmseqs", segments=s_b,
-                      max_seg_len=sweep if s_b > 1 else None)
+            kw = dict(convention="mmseqs", segments=s_b)
             ms = cuda_ms(lambda: align_cuda.sw_scores_grouped(qd, td, **kw))
-            plain_ms = cuda_ms(  # ~0.5 s a call: windows of one call
+            plain_ms = cuda_ms(  # up to seconds a call: windows of one call
                 lambda: align_cuda.sw_scores_grouped_plain(qd, td, **kw), reps=1
             )
             cells = real_cells(block)
@@ -1295,7 +1303,8 @@ def main() -> None:
             c_cells += cells
             c_bytes += tensor_bytes(qd, td, k_out)
             log(f"phase 3 kernel C sw_grouped block G={g_pad} Lq={lq_b}"
-                f" K={tc.shape[1]} Lt={lt_b} S={s_b}: bit-equal (both conventions),"
+                f" K={tc.shape[1]} Lt={lt_b} S={s_b} ({lanes} lanes, grid of"
+                f" {grid} warps): bit-equal (both conventions),"
                 f" {ms:.3f} ms vs plain {plain_ms:.3f} ms, {cells} real"
                 f" cells, {cells / ms / 1e6:.1f} GCUPS")
         c_bound = bound(SW_OPS_PER_CELL * c_cells, "int32", c_bytes)
@@ -1306,7 +1315,8 @@ def main() -> None:
             max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, library_ms=None,
             library=None, gcups=c_cells / c_ms / 1e6, **c_bound,
         )
-        log(f"phase 3 kernel C: four blocks {c_ms:.3f} ms, {c_cells} real"
+        assert outnumbered >= 3, "C: the blocks must outnumber the grid's warps"
+        log(f"phase 3 kernel C: four card blocks {c_ms:.3f} ms, {c_cells} real"
             f" cells, {c_cells / c_ms / 1e6:.1f} GCUPS, bound"
             f" {c_bound['bound_ms']:.3f} ms ({c_bound['bound_by']}), plain"
             f" {c_plain_ms:.3f} ms")

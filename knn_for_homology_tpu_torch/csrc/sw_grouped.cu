@@ -12,7 +12,10 @@
 //
 // What bounds it here: integer operations, about ten a DP cell (the
 // substitution, two gap updates, a four-way max, the running best), at
-// the card's INT32 rate. The TPU kernel kept the whole [Lt, K] state and a
+// the card's INT32 rate, when a launch holds more lanes than the card holds
+// warps. A launch of a few long lanes is bound instead by one warp's
+// dependent chain (two DPX operations a row, eight rows a step): about 450
+// cycles a step on an H100. The TPU kernel kept the whole [Lt, K] state and a
 // substitution profile in VMEM and swept all 128 lanes of a group at once,
 // one query row per step. A lane is one (query, target) alignment, and a
 // group holds about as many live lanes as its query has hits, so that
@@ -29,16 +32,19 @@
 //   * Diagonal wavefront: at step s thread t works on column j = s - t. It
 //     receives (H, F) of the row above its first row, and the column's
 //     target code, from thread t-1 with __shfl_up_sync; thread 0 takes the
-//     code from a 32-column chunk the warp loads together, and (H, F) from
-//     the strip boundary. E and H-left stay in the thread. The
+//     code, and (H, F) from the strip boundary, out of a 32-column chunk
+//     the warp loads together, one chunk ahead, so no step waits on device
+//     memory. E and H-left stay in the thread. The
 //     substitution comes from BLOSUM62 in shared memory, laid out
 //     [target code][query code] so the 32 threads' reads of one column
 //     fall in distinct banks; a 25th code row and column of -2^24 is the
 //     knocked-out substitution of pads.
 //   * Long queries go in strips: thread 31 writes the strip's last row
 //     (H, F) at each column to a per-warp scratch in device memory, where
-//     thread 0 of the next strip reads it (one int2 per column and strip;
-//     each column is read before it is rewritten).
+//     the next strip reads it (one int2 per column and strip). Column j's
+//     load, a chunk ahead, is consumed by step j, and thread 31 rewrites
+//     the column at step j + 31, so each column is read before it is
+//     rewritten.
 //   * The cell runs on Hopper's DPX instructions: F and E are
 //     __viaddmax_s32 (max(a + b, c)), H is __vimax3_s32_relu (a three-way
 //     max with 0), and the running best __vimax_s32_relu.
@@ -99,29 +105,12 @@ __global__ void __launch_bounds__(32 * kWarps) sw_lanes(const Params p) {
     p.out[((size_t)g * p.segments + s) * p.k + kk] = 0.f;
   const int8_t* tl = p.t + (size_t)gk * p.lt;
   int last = 0;
-  if ((p.lt & 3) == 0) {
-    // 4 codes a thread: a code >= 0 has its sign bit clear
-    const unsigned* tw = reinterpret_cast<const unsigned*>(tl);
-    const int words = p.lt / 4;
-    for (int w0 = (words - 1) / 32 * 32; w0 >= 0; w0 -= 32) {
-      const int w = w0 + lane;
-      const unsigned bits = w < words ? ~tw[w] & 0x80808080u : 0u;
-      const unsigned m = __ballot_sync(0xffffffffu, bits != 0u);
-      if (m) {
-        const int top = 31 - __clz(m);
-        const unsigned b = __shfl_sync(0xffffffffu, bits, top);
-        last = (w0 + top) * 4 + (31 - __clz(b)) / 8 + 1;
-        break;
-      }
-    }
-  } else {
-    for (int j0 = (p.lt - 1) / 32 * 32; j0 >= 0; j0 -= 32) {
-      const int j = j0 + lane;
-      const unsigned m = __ballot_sync(0xffffffffu, j < p.lt && tl[j] >= 0);
-      if (m) {
-        last = j0 + 32 - __clz(m);
-        break;
-      }
+  for (int j0 = (p.lt - 1) / 32 * 32; j0 >= 0; j0 -= 32) {
+    const int j = j0 + lane;
+    const unsigned m = __ballot_sync(0xffffffffu, j < p.lt && tl[j] >= 0);
+    if (m) {
+      last = j0 + 32 - __clz(m);
+      break;
     }
   }
   if (lane == 0 && last > 0) {
@@ -189,14 +178,26 @@ __global__ void __launch_bounds__(32 * kWarps) sw_wavefront(const Params p) {
       // column's target code
       int h_out = 0, f_out = kNeg, tc_out = -1;
       int diag = 0;  // H of the row above the first row, previous column
-      int run = 0, seg = 0, chunk = -1;
+      int run = 0, seg = 0;
+      // column 32c + lane's target code and strip boundary (H, F), for the
+      // current chunk c and the next (the top strip's boundary is (0, -inf))
+      auto code_at = [&](int j) { return j < lt_eff ? (int)tl[j] : -1; };
+      auto bound_at = [&](int j) {
+        return !first && j < lt_eff ? bnd[j] : make_int2(0, kNeg);
+      };
+      int code = code_at(lane), code_next = code_at(32 + lane);
+      int2 b = bound_at(lane), b_next = bound_at(32 + lane);
       const int steps = lt_eff + 31;
       for (int s = 0; s < steps; ++s) {
-        if ((s & 31) == 0) {
-          const int j = s + lane;
-          chunk = j < lt_eff ? tl[j] : -1;
+        if ((s & 31) == 0 && s > 0) {
+          code = code_next;
+          b = b_next;
+          code_next = code_at(s + 32 + lane);
+          b_next = bound_at(s + 32 + lane);
         }
-        const int c0 = __shfl_sync(0xffffffffu, chunk, s & 31);
+        const int c0 = __shfl_sync(0xffffffffu, code, s & 31);
+        const int h0 = __shfl_sync(0xffffffffu, b.x, s & 31);
+        const int f0 = __shfl_sync(0xffffffffu, b.y, s & 31);
         int hu = __shfl_up_sync(0xffffffffu, h_out, 1);
         int fu = __shfl_up_sync(0xffffffffu, f_out, 1);
         int tc = __shfl_up_sync(0xffffffffu, tc_out, 1);
@@ -204,14 +205,8 @@ __global__ void __launch_bounds__(32 * kWarps) sw_wavefront(const Params p) {
         if (j < 0 || j >= lt_eff) continue;
         if (lane == 0) {
           tc = c0;
-          if (first) {
-            hu = 0;
-            fu = kNeg;
-          } else {
-            const int2 b = bnd[j];
-            hu = b.x;
-            fu = b.y;
-          }
+          hu = h0;
+          fu = f0;
         }
         if (ragged && tc < 0) {
           // separator: close the segment, restart the alignment after it

@@ -229,7 +229,9 @@ def segment_packed_kernel(
     f32 = storage == "native" and db.dtype == torch.float32
     if not f32 and d % 16:
         # the tensor-core kernels' TMA reads rows of whole 16 bytes; zero
-        # columns add 0 to every dot and norm
+        # columns add 0 to every dot and norm. This copies both operands,
+        # the whole db included, on every call (no configuration of the
+        # repo has such a d: all are 1024)
         pad = (0, -d % 16)
         queries, db = (torch.nn.functional.pad(t, pad) for t in (queries, db))
         q_lo = None if q_lo is None else torch.nn.functional.pad(q_lo, pad)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from knn_for_homology_tpu_torch.ops import (
+    _build,
     align_cuda,
     exact_cuda,
     flat_cuda,
@@ -162,7 +163,8 @@ def test_sw_kernel_bit_equal_to_plain(cuda, convention, segments):
 def _sw_edge_case(case, seed=21):
     """(q [G, Lq], t [G, K, Lt], segments) of one edge of kernel C's warp
     wavefront: 256-row strips (32 threads x 8 rows), live-lane lists,
-    separators, pads."""
+    separators, pads, and launches of more lanes than the card holds warps
+    (each warp then takes several lanes of one or two strips, in turn)."""
     rng = np.random.RandomState(seed)
 
     def codes(n):
@@ -174,12 +176,17 @@ def _sw_edge_case(case, seed=21):
         "lq3500": (3500, 1, 3, 120, 1), "empty_lanes": (300, 4, 9, 70, 1),
         "pad_row": (600, 2, 4, 80, 1), "lt1": (180, 2, 5, 1, 1),
         "ragged_strips": (700, 2, 6, 240, 8), "seg63": (300, 2, 3, 190, 63),
+        "many_lanes": (300, 2048, 13, 48, 1),
+        "many_ragged": (300, 2048, 13, 64, 8),
     }[case]
     lq = -(-lq_eff // 128) * 128  # the planner's bucket
     q = np.full((g, lq), -1, np.int32)
     t = np.full((g, k, lt), -1, np.int32)
     for gi in range(g):
-        q[gi, :lq_eff] = codes(lq_eff)
+        # many lanes: queries of 1 to 300 residues, one strip or two
+        n_q = (int(rng.randint(1, lq_eff + 1)) if case.startswith("many")
+               else lq_eff)
+        q[gi, :n_q] = codes(n_q)
         for ki in range(k):
             if segments == 1:
                 n = lt if case == "lt1" else int(rng.randint(lt // 2, lt + 1))
@@ -207,18 +214,29 @@ def _sw_edge_case(case, seed=21):
 @pytest.mark.parametrize("convention", ["blast", "mmseqs"])
 @pytest.mark.parametrize("case", [
     "lq1", "strip", "strip+1", "lq2048", "lq3500", "empty_lanes", "pad_row",
-    "lt1", "ragged_strips", "seg63"])
+    "lt1", "ragged_strips", "seg63", "many_lanes", "many_ragged"])
 def test_sw_kernel_edges_bit_equal(cuda, convention, case):
     # Lq = 1; a query of exactly one strip and one row past it; 2048 and
     # 3500 rows (8 and 14 strips through the boundary scratch); empty lanes
     # between live ones and an all-empty group (nothing in the live list);
     # interior query pad rows at a strip edge; Lt = 1; ragged lanes across
-    # strips; 63 segments
+    # strips; 63 segments; 2048 x 13 short classic or ragged lanes, more
+    # than the persistent grid's warps (each reuses its boundary scratch and
+    # segment slots from lane to lane)
     q, t, segments = _sw_edge_case(case)
     kw = dict(convention=convention, segments=segments)
+    plain_on = "cpu"
+    if case.startswith("many"):
+        g, k = t.shape[:2]
+        assert g * k > _build.library().knn_sw_grouped_warps(g, k)
+        # the plain version on the card (its float32 state holds exact
+        # integers, so either device gives the same scores; the CPU takes
+        # ~20 s a call at 2048 groups)
+        plain_on = cuda
+    want = align_cuda.sw_scores_grouped_plain(
+        q.to(plain_on), t.to(plain_on), **kw).cpu()
     for codes in (t, t.to(torch.int8)):  # any integer dtype, int8 as is
         got = align_cuda.sw_scores_grouped(q.to(cuda), codes.to(cuda), **kw)
-        want = align_cuda.sw_scores_grouped_plain(q, t, **kw)
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     assert float(want.max()) > 0
     if case == "empty_lanes":
