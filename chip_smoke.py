@@ -30,7 +30,8 @@ d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
   7. the port's bench at the headline shape (default modes, plus sq8 so
      kernel E runs, plus the sq8-sym2 high-recall point), launch counts
      reset just before; its JSON line, recalls against the reference
-     algorithm's (0.9767 sq8-sym, 0.9813 approx, hi ≥ 0.985);
+     algorithm's (0.9767 sq8-sym, 0.9813 approx, hi ≥ 0.985); then one
+     query block of the exact mode, kernel B and its epilogue timed apart;
   8. the encoder path: ProtT5-XL at full width (24 layers, bf16, random
      weights from a seeded torch.Generator on the card) embeds 1028
      proteins (32 families x 32 of the length mix, plus four long ones
@@ -48,7 +49,15 @@ d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
      plain versions' route (ids equal); a write_index / read_index round
      trip on the card.
 
-Phase 3 also holds the encoder's kernels at full width: G at 7000 tokens x
+Phase 3 holds kernel A (its FFMA product) at 1024 queries, k = 13, and
+kernel B (3xTF32 wgmma products) at 512 queries of the exact k = 1000 plan,
+each beside two bounds (the fp32 FFMA product and the 3xTF32 one, three
+products at the TF32 rate) and one fp32 torch.matmul of the product alone
+as the yardstick; B also runs with one query repeated on the database as it
+is and sorted by that query's similarity, which splits its time between
+products and inserts. A's and B's entries count their launches in every
+phase that runs them (launches_by_phase). Phase 3 also holds the encoder's
+kernels at full width: G at 7000 tokens x
 1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128 and
 27 x 32 x 256 x 128 (H and I fed the [H, 2L-1] offset-bias table); and the
 IVF path's kernels: J at 1024 queries x 256 cells (32768 rows) x 1024, k =
@@ -107,7 +116,7 @@ HI_RECALL_MIN = 0.985
 # int32: 132 SMs x 64 INT32 lanes a clock (the Hopper SM's four partitions
 # of 16; NVIDIA's Hopper architecture white paper) x 1980 MHz, the H100
 # SXM's maximum SM clock (nvidia-smi clocks.max.sm; phase 1 prints it)
-PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12,
+PEAK_OPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12,
             "int32": 132 * 64 * 1980e6}
 HBM_BYTES_PER_S = 3.35e12
 # Smith-Waterman cell, in int32: substitution lookup + add, two gap
@@ -333,6 +342,114 @@ def packed_atol(vals, jbits):
     return top * 2.0 ** (jbits - 23) + SCORE_ATOL
 
 
+def product_bounds(q_n, db, q, outputs):
+    """A's and B's bounds (PERF.md §6): the fp32 FFMA product, 2·Q·N·d
+    operations at the fp32 rate, and the 3xTF32 one, three such products at
+    the TF32 rate; bytes: both operands once, the outputs once."""
+    n, d = db.shape
+    nbytes = tensor_bytes(db, q, *outputs)
+    fp32 = bound(2 * q_n * n * d, "fp32", nbytes)
+    tf32 = bound(3 * 2 * q_n * n * d, "tf32", nbytes)
+    return fp32, tf32
+
+
+def matmul_ms(q, db):
+    """The yardstick of A and B: one fp32 torch.matmul of the product alone
+    (TF32 off, as the package sets it; no selection), which the port never
+    calls."""
+    import torch
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return cuda_ms(lambda: torch.matmul(q, db.T))
+
+
+def check_search_kernels(db, q_all, kernels):
+    """Phase 3 for kernels A and B. A (FFMA product, k = 13, 1024 queries)
+    and B (3xTF32 wgmma products, 512 queries at the exact k = 1000 plan)
+    against their plain versions (ids equal up to near-ties within
+    SCORE_ATOL), B's rescue path against the full sort; each beside both
+    bounds (product_bounds) and the fp32 torch.matmul yardstick. B's time is
+    then split between products and inserts without a knob: the same call
+    with one query repeated, on the database as it is and reordered so the
+    query's similarity falls with the pass index (then only the first R
+    passes insert anything)."""
+    import torch
+
+    from knn_for_homology_tpu_torch.ops import exact_cuda, flat_cuda
+
+    q = q_all[:1024].contiguous()
+    got = flat_cuda.flat_topk_kernel(db, q, HITS, "cosine")
+    want = flat_cuda.flat_topk_plain(db, q, HITS, "cosine")
+    err, swaps = check_topk("A", got, want, db, q)
+    ms = cuda_ms(lambda: flat_cuda.flat_topk_kernel(db, q, HITS, "cosine"))
+    plain_ms = cuda_ms(lambda: flat_cuda.flat_topk_plain(db, q, HITS, "cosine"))
+    fp32, tf32 = product_bounds(q.shape[0], db, q, got)
+    lib_ms = matmul_ms(q, db)
+    kernels["A"] = dict(
+        name="flat_topk", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/flat_topk.cu",
+        replaces="knn_for_homology_tpu/ops/flat_pallas.py:51",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library="fp32 torch.matmul, product only", product="fp32 FFMA",
+        bound_fp32_ms=fp32["bound_ms"], bound_tf32x3_ms=tf32["bound_ms"],
+        **fp32,
+    )
+    log(f"phase 3 kernel A flat_topk [1024 x {N_TRAIN} x {DIM}, k={HITS}]:"
+        f" max_abs_err {err:.3g}, {swaps} near-tie swaps, {ms:.3f} ms vs plain"
+        f" {plain_ms:.3f} ms, fp32 torch.matmul {lib_ms:.3f} ms, bound"
+        f" {fp32['bound_ms']:.3f} ms fp32 FFMA ({tf32['bound_ms']:.3f} ms"
+        " 3xTF32)")
+
+    q = q_all[:512].contiguous()
+    w, r = exact_cuda.plan(N_TRAIN, 1000, exact_cuda.default_db_tile(1000))
+    bufs = exact_cuda.segment_topr_kernel(db, q, w, r, "cosine")
+    plain_bufs = exact_cuda.segment_topr_plain(db, q, w, r, "cosine")
+    got = exact_cuda.epilogue(*bufs, 1000, w, r)
+    want = exact_cuda.epilogue(*plain_bufs, 1000, w, r)
+    err, swaps = check_topk("B", got[:2], want[:2], db, q)
+    suspect = int(got[2].sum())
+    ms = cuda_ms(lambda: exact_cuda.segment_topr_kernel(db, q, w, r, "cosine"))
+    plain_ms = cuda_ms(
+        lambda: exact_cuda.segment_topr_plain(db, q, w, r, "cosine")
+    )
+    rescued = exact_cuda.exact_topk(db, q, 1000, "cosine", r_slots=2)
+    full = exact_cuda.oneshot_topk(db, q, 1000, "cosine")
+    err_r, swaps_r = check_topk("B rescue", rescued, full, db, q)
+    fp32, tf32 = product_bounds(q.shape[0], db, q, bufs)
+    lib_ms = matmul_ms(q, db)
+    # products vs inserts: one query repeated, the db as it is and sorted
+    # by that query's similarity, descending (the same products; the
+    # sorted lanes insert only in their first R passes)
+    q1 = q[:1].expand(q.shape[0], -1).contiguous()
+    order = torch.argsort(db @ q[0], descending=True)
+    db_sorted = db[order].contiguous()
+    one_ms = cuda_ms(lambda: exact_cuda.segment_topr_kernel(db, q1, w, r,
+                                                           "cosine"))
+    sorted_ms = cuda_ms(lambda: exact_cuda.segment_topr_kernel(
+        db_sorted, q1, w, r, "cosine"))
+    del db_sorted, order
+    kernels["B"] = dict(
+        name="segment_topr", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/segment_topr.cu",
+        replaces="knn_for_homology_tpu/ops/exact_pallas.py:126",
+        max_abs_err=max(err, err_r), ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, library="fp32 torch.matmul, product only",
+        product="3xTF32 wgmma",
+        bound_fp32_ms=fp32["bound_ms"], bound_tf32x3_ms=tf32["bound_ms"],
+        one_query_ms=one_ms, one_query_sorted_db_ms=sorted_ms,
+        **tf32,
+    )
+    log(f"phase 3 kernel B segment_topr [512 x {N_TRAIN} x {DIM}, k=1000,"
+        f" W={w}, R={r}]: max_abs_err {err:.3g}, {swaps} swaps,"
+        f" {suspect} suspect rows, {ms:.3f} ms vs plain {plain_ms:.3f} ms,"
+        f" fp32 torch.matmul {lib_ms:.3f} ms, bound {tf32['bound_ms']:.3f} ms"
+        f" 3xTF32 ({fp32['bound_ms']:.3f} ms fp32 FFMA); forced R=2 with"
+        f" rescue vs full sort: max_abs_err {err_r:.3g}, {swaps_r} swaps;"
+        f" one query repeated: {one_ms:.3f} ms, on the db sorted by its"
+        f" similarity (inserts in the first R passes only) {sorted_ms:.3f} ms,"
+        f" inserts {one_ms - sorted_ms:.3f} ms")
+
+
 def check_packed_kernels(db, q, kernels):
     """Phase 3 for kernels D, E, F at the bench's plan: D (fp32 and bf16
     db) and E (cosine and l2) decoded and held like check_topk at the
@@ -454,6 +571,45 @@ def check_packed_kernels(db, q, kernels):
     )
 
 
+def exact_mode_split(args, kernels):
+    """Phase 7: one query block of the bench's exact mode, its kernel B call
+    and its epilogue (the int64-key torch.topk over [block, R·W], the
+    certificate) timed apart with CUDA events on the bench's own database
+    (seed 0, bf16 rows widened to fp32), after one warm call of each."""
+    import torch
+
+    from knn_for_homology_tpu_torch.ops import exact_cuda
+    from knn_for_homology_tpu_torch.ops.distance import l2_normalize
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    db = l2_normalize(torch.randn(args.n, args.d, generator=gen, device="cuda")
+                      ).to(torch.bfloat16).to(torch.float32)
+    w, r = exact_cuda.plan(args.n, args.k, exact_cuda.default_db_tile(args.k))
+    block = min(args.n, exact_cuda.CANDIDATE_BYTES // (r * w * 8))
+    q = db[:block]
+    times = {}
+    for name, fn in (("kernel", lambda: exact_cuda.segment_topr_kernel(
+            db, q, w, r, "ip")), ("epilogue", None)):
+        if fn is None:
+            bufs = exact_cuda.segment_topr_kernel(db, q, w, r, "ip")
+            fn = lambda: exact_cuda.epilogue(*bufs, args.k, w, r)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end)
+    del bufs
+    kernels["B"]["exact_mode_block"] = dict(queries=block, **{
+        f"{name}_ms": ms for name, ms in times.items()})
+    log(f"phase 7 exact mode, one block of {block} queries (W={w}, R={r}):"
+        f" kernel B {times['kernel']:.3f} ms, epilogue (int64 top-k over"
+        f" [{block}, {r * w}], certificate) {times['epilogue']:.3f} ms")
+
+
 def run_bench(kernels):
     """Phase 7: the port's bench at the headline shape, counts from zero."""
     import torch
@@ -475,6 +631,7 @@ def run_bench(kernels):
     print(json.dumps(result), flush=True)
     b_launches = exact_cuda.segment_topr_kernel.launches
     assert b_launches > 0, "kernel B was not launched by the bench"
+    kernels["B"]["launches_by_phase"]["7"] = b_launches
     for key in ("D", "E", "F"):
         assert launches[key] > 0, f"kernel {key} was not launched by the bench"
         kernels[key]["launches"] = launches[key]
@@ -488,6 +645,7 @@ def run_bench(kernels):
     assert result["hi_recall"] >= HI_RECALL_MIN, result["hi_recall"]
     for key, value in result.items():
         assert key == "config" or isinstance(value, str) or math.isfinite(value)
+    exact_mode_split(args, kernels)
     log(f"phase 7 bench n={args.n} d={args.d} k={args.k}: "
         + ", ".join(f"{m} {result[m + '_qps']:.0f} q/s" for m in args.mode_list)
         + f", hi {result['hi_recall_qps']:.0f} q/s | recalls {recalls},"
@@ -846,8 +1004,10 @@ def run_ivf_path(train, test, kernels):
     launches = {key: getattr(mod, name).launches
                 for key, (mod, name) in counters.items()}
     launches.update(packed_cuda.segment_packed_kernel.launches)
-    for key in ("J", "K", "B"):
+    for key in ("J", "K", "B", "A"):
         assert launches[key] > 0, f"kernel {key} was not launched by phase 9"
+    for key in ("A", "B"):
+        kernels[key]["launches_by_phase"]["9"] = launches[key]
     kernels["J"]["launches"], kernels["K"]["launches"] = (launches["J"],
                                                           launches["K"])
 
@@ -1077,6 +1237,7 @@ def run_encoder(kernels, seed):
     assert launches["I"] == 0, "the short kernel is opt-in"
     kernels["G"]["launches"], kernels["H"]["launches"] = (
         launches["G"], launches["H"])
+    kernels["A"]["launches_by_phase"]["8"] = launches["A"]
     assert pooled.shape == (len(seqs), config.d_model)
     assert np.isfinite(pooled).all() and np.isfinite(sims).all()
     # same-family share of the top-13 (family f holds rows f*31 .. f*31+30)
@@ -1199,55 +1360,7 @@ def main() -> None:
 
         # ---- phase 3: kernels against their plain versions
         warm_card()
-        q = q_all[:1024].contiguous()
-        got = flat_cuda.flat_topk_kernel(db, q, HITS, "cosine")
-        want = flat_cuda.flat_topk_plain(db, q, HITS, "cosine")
-        err, swaps = check_topk("A", got, want, db, q)
-        ms = cuda_ms(lambda: flat_cuda.flat_topk_kernel(db, q, HITS, "cosine"))
-        plain_ms = cuda_ms(lambda: flat_cuda.flat_topk_plain(db, q, HITS, "cosine"))
-        kernels["A"] = dict(
-            name="flat_topk", route="cuda",
-            source="knn_for_homology_tpu_torch/csrc/flat_topk.cu",
-            replaces="knn_for_homology_tpu/ops/flat_pallas.py:51",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-            library=None,
-            **bound(2 * q.shape[0] * N_TRAIN * DIM, "fp32",
-                    tensor_bytes(db, q, *got)),
-        )
-        log(f"phase 3 kernel A flat_topk [1024 x {N_TRAIN} x {DIM}, k={HITS}]:"
-            f" max_abs_err {err:.3g}, {swaps} near-tie swaps, {ms:.3f} ms"
-            f" vs plain {plain_ms:.3f} ms")
-
-        q = q_all[:512].contiguous()
-        w, r = exact_cuda.plan(N_TRAIN, 1000, exact_cuda.default_db_tile(1000))
-        bufs = exact_cuda.segment_topr_kernel(db, q, w, r, "cosine")
-        plain_bufs = exact_cuda.segment_topr_plain(db, q, w, r, "cosine")
-        got = exact_cuda.epilogue(*bufs, 1000, w, r)
-        want = exact_cuda.epilogue(*plain_bufs, 1000, w, r)
-        err, swaps = check_topk("B", got[:2], want[:2], db, q)
-        suspect = int(got[2].sum())
-        ms = cuda_ms(lambda: exact_cuda.segment_topr_kernel(db, q, w, r, "cosine"))
-        plain_ms = cuda_ms(
-            lambda: exact_cuda.segment_topr_plain(db, q, w, r, "cosine")
-        )
-        rescued = exact_cuda.exact_topk(db, q, 1000, "cosine", r_slots=2)
-        full = exact_cuda.oneshot_topk(db, q, 1000, "cosine")
-        err_r, swaps_r = check_topk("B rescue", rescued, full, db, q)
-        kernels["B"] = dict(
-            name="segment_topr", route="cuda",
-            source="knn_for_homology_tpu_torch/csrc/segment_topr.cu",
-            replaces="knn_for_homology_tpu/ops/exact_pallas.py:126",
-            max_abs_err=max(err, err_r), ms=ms, plain_ms=plain_ms,
-            library_ms=None,
-            library=None,
-            **bound(2 * q.shape[0] * N_TRAIN * DIM, "fp32",
-                    tensor_bytes(db, q, *bufs)),
-        )
-        log(f"phase 3 kernel B segment_topr [512 x {N_TRAIN} x {DIM}, k=1000,"
-            f" W={w}, R={r}]: max_abs_err {err:.3g}, {swaps} swaps,"
-            f" {suspect} suspect rows, {ms:.3f} ms vs plain {plain_ms:.3f} ms;"
-            f" forced R=2 with rescue vs full sort: max_abs_err {err_r:.3g},"
-            f" {swaps_r} swaps")
+        check_search_kernels(db, q_all, kernels)
 
         check_packed_kernels(db, q_all[:1024].contiguous(), kernels)
 
@@ -1333,6 +1446,8 @@ def main() -> None:
         t0 = time.perf_counter()
         results = benchmark.run(ds, hits=HITS, figures=False, device="cuda")
         wall = time.perf_counter() - t0
+        phase4 = {"A": flat_cuda.flat_topk_kernel.launches,
+                  "B": exact_cuda.segment_topr_kernel.launches}
         (_, auc_knn, tp_knn, search_s), (_, auc_al, tp_al, total_s) = results[:2]
         align_s = total_s - search_s
         for label, vals in [("kNN AUC1", auc_knn), ("kNN+align AUC1", auc_al)]:
@@ -1356,6 +1471,11 @@ def main() -> None:
         for key, n in launches.items():
             assert n > 0, f"kernel {key} was not launched on the main path"
             kernels[key]["launches"] = n
+        for key in ("A", "B"):
+            kernels[key]["launches_by_phase"] = {
+                "4": phase4[key], "5": launches[key] - phase4[key]}
+        assert phase4["A"] > 0 and launches["B"] > phase4["B"], (
+            "A must run in phase 4, B in phase 5")
 
         # what the main path aligned: every query against its 13 hits
         _, ids13 = index.search(test, HITS)
@@ -1416,6 +1536,8 @@ def main() -> None:
         _, a_ids = FlatIndex(device="cuda", backend="approx").add(
             train).search(test, HITS)
         assert flat_cuda.flat_topk_kernel.launches > a_before
+        kernels["A"]["launches_by_phase"]["5"] += (
+            flat_cuda.flat_topk_kernel.launches - a_before)
         assert np.array_equal(a_ids, ids13), "approx k=13 differs from exact"
         _, s_ids = FlatIndex(device="cuda", backend="sq8").add(
             train).search(qk, 1000)

@@ -1,10 +1,13 @@
 // Shared device code of the search kernels (flat_topk.cu, segment_topr.cu,
-// segment_packed.cu): a register-tiled fp32 FFMA tile product and the
-// monotone float -> int32 map of the segment kernels.
+// segment_packed.cu): a register-tiled fp32 FFMA tile product, the
+// squared row norms of the l2 epilogues and the monotone float -> int32
+// map of the segment kernels.
 //
-// The tile product keeps full fp32 (FFMA, no TF32 tensor cores): the
-// reference computes these dots at Precision.HIGHEST, and TF32's ~3 decimal
-// digits would swap near-tie neighbours. 256 threads compute a
+// The FFMA tile product (D's fp32 route, segment_packed.cu) keeps full
+// fp32: the reference computes these dots at Precision.HIGHEST, and a
+// single TF32 product's ~3 decimal digits would swap near-tie neighbours;
+// kernels A and B take the same precision on the tensor cores as 3xTF32
+// products instead (tf32x3.cuh). 256 threads compute a
 // BM x BN = (16*TM) x (16*TN) block of q . db^T, staging BK = 16 columns
 // of each operand in shared memory per step. Operands may be float, bf16
 // or int8; they are widened to float (exactly) when staged.
@@ -119,5 +122,34 @@ __device__ __forceinline__ int32_t ordered_int(float v) {
   const int32_t u = __float_as_int(v);
   return u ^ ((u >> 31) & 0x7FFFFFFF);
 }
+
+// Squared row norms |x_i|^2 in fp32 for the l2 epilogues of A, B, D and E,
+// one warp a row. (Unnamed namespace: each unit keeps its own copy.)
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+row_sq_norms(const T* __restrict__ x, int rows, int d, float* __restrict__ out) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float sq = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float v = to_float(x[(size_t)row * d + c]);
+    sq = fmaf(v, v, sq);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  if (lane == 0) out[row] = sq;
+}
+
+template <typename T>
+cudaError_t launch_norms(const void* x, int rows, int d, float* out,
+                         cudaStream_t stream) {
+  row_sq_norms<T><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const T*>(x), rows, d, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace knn

@@ -209,31 +209,6 @@ cudaError_t launch_f32(Params p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Squared row norms |x_i|^2 in fp32 for the l2 epilogues of D and E, one
-// warp a row.
-template <typename T>
-__global__ void __launch_bounds__(256)
-row_sq_norms(const T* __restrict__ x, int rows, int d, float* __restrict__ out) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  float sq = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float v = knn::to_float(x[(size_t)row * d + c]);
-    sq = fmaf(v, v, sq);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  if (lane == 0) out[row] = sq;
-}
-
-template <typename T>
-cudaError_t launch_norms(const void* x, int rows, int d, float* out,
-                         cudaStream_t stream) {
-  row_sq_norms<T><<<(rows + 7) / 8, 256, 0, stream>>>(
-      static_cast<const T*>(x), rows, d, out);
-  return cudaGetLastError();
-}
-
 // ------------------------------------------------ D bf16, E, F and J
 namespace mma {
 
@@ -867,11 +842,11 @@ extern "C" int knn_segment_packed(const void* q, const void* q_lo,
   if (p.l2) {
     p.q_sq = norms;
     p.d_sq = norms + q_n;
-    cudaError_t err = launch_norms<__nv_bfloat16>(q, q_n, d, norms, stream);
+    cudaError_t err = knn::launch_norms<__nv_bfloat16>(q, q_n, d, norms, stream);
     if (err == cudaSuccess)
       err = variant == kBF16
-                ? launch_norms<__nv_bfloat16>(db, n, d, norms + q_n, stream)
-                : launch_norms<int8_t>(db, n, d, norms + q_n, stream);
+                ? knn::launch_norms<__nv_bfloat16>(db, n, d, norms + q_n, stream)
+                : knn::launch_norms<int8_t>(db, n, d, norms + q_n, stream);
     if (err != cudaSuccess) return (int)err;
   }
   switch (variant) {

@@ -3,7 +3,7 @@
 Every `csrc/*.cu` compiles in its own nvcc process, all started together,
 and one more nvcc call links the objects into a shared library with a plain
 C interface (no PyTorch headers: seconds instead of minutes), against
-libcuda (`-lcuda`, for the TMA maps of kernels F, G, H, I and J; the
+libcuda (`-lcuda`, for the TMA maps of kernels B and D-J; the
 toolkit's stub at link time, the installed libcuda.so.1 at load time). The library
 lands in `build/torch_kernels/` at the repository root (git-ignored),
 named by a hash of the sources and flags (taken once per process), so an
@@ -37,10 +37,16 @@ _F = ctypes.c_float
 # C entry points: name -> argument types (each returns cudaError_t, but
 # the *_blocks_per_sm and *_warps queries, which return a count or -1)
 SIGNATURES = {
-    # q, db, vals, ids, part_vals, part_ids, q_n, n, d, k, splits, l2, stream
-    "knn_flat_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, db, buf_v, buf_i, q_n, n, d, w, r, l2, stream
-    "knn_segment_topr": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, db, norms, vals, ids, part_vals, part_ids, q_n, n, d, k, splits,
+    # l2, stream
+    "knn_flat_topk": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    # q, db, norms, buf_v, buf_i, q_n, n, d, w, r, l2, bn, stages,
+    # global_slots, stream
+    "knn_segment_topr": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
     # q, q_lo, db, scales, norms, buf, q_n, n, d, w, r, jbits, variant, l2,
     # stream
     "knn_segment_packed": [

@@ -35,12 +35,27 @@ INT32_MIN = -(2**31)
 # per query block; the epilogue's int64 sort keys add as much again.
 CANDIDATE_BYTES = 1 << 30
 
-# queries per CUDA block of kernel B (csrc/segment_topr.cu: BM), of the
-# packed kernels' tensor-core route (D bf16, E, F: one wgmma warpgroup,
-# csrc/segment_packed.cu mma::BM) and of D's fp32 FFMA route (BM = 16 * TM)
-SEGMENT_TOPR_QUERIES = 32
+# queries per CUDA block of kernel B (one 3xTF32 wgmma warpgroup,
+# csrc/tf32x3.cuh BM), of the packed kernels' tensor-core route (D bf16, E,
+# F: csrc/segment_packed.cu mma::BM) and of D's fp32 FFMA route (16 * TM)
+SEGMENT_TOPR_QUERIES = 64
 SEGMENT_PACKED_QUERIES = 64
 F32_PACKED_QUERIES = 32
+
+# Kernel B's shared memory (csrc/segment_topr.cu, csrc/tf32x3.cuh): a ring
+# of stages, each a 32-column chunk of the block's 64 query rows and of the
+# 64 db rows of a step (its BN lanes in 64 / BN passes), split in place
+# into tf32 "big" with the "small" half behind them; the warps' winner
+# queues; the slots unless they live in the output buffers (int32 value +
+# uint16 pass index: 6 bytes)
+TOPR_SMEM_LIMIT = 227 * 1024
+TOPR_RING_FIXED = 1024 + 2 * 8 * 8  # alignment slack, full / empty barriers
+TOPR_QUEUE_BYTES = 4 * 2 * 64 * 4
+TOPR_MAX_STAGES, TOPR_MIN_STAGES = 8, 3
+TOPR_MAX_SHARED_PASSES = 0xFFFF  # the uint16 pass index; 0xFFFF marks empty
+# a stage: 128-byte rows of the 64 queries, of the step's 64 db rows and of
+# their "small" halves
+TOPR_STAGE_BYTES = (SEGMENT_TOPR_QUERIES + 2 * 64) * 128
 
 
 def _ordered_int(u: torch.Tensor) -> torch.Tensor:
@@ -147,6 +162,53 @@ def plan_fingerprint(
     }
 
 
+def topr_smem_bytes(bn: int, stages: int, r_slots: int,
+                    global_slots: bool) -> int:
+    """Kernel B's shared memory for one block of a plan (as the kernel
+    computes it; it refuses a plan above TOPR_SMEM_LIMIT)."""
+    slots = 0 if global_slots else SEGMENT_TOPR_QUERIES * bn * r_slots * 6
+    return TOPR_RING_FIXED + stages * TOPR_STAGE_BYTES + TOPR_QUEUE_BYTES + slots
+
+
+def topr_plan(q_n: int, n: int, db_tile: int, r_slots: int,
+              sms: int = 132) -> Tuple[int, int, bool]:
+    """Kernel B's launch plan (BN lanes a block, ring stages, slots in
+    device memory): slots in shared memory wherever they fit beside
+    TOPR_MIN_STAGES stages (and passes fit the uint16 pass index), else in
+    the output buffers; of the lane tiles that fit, the widest whose grid
+    ((Q / 64) x (W / BN) blocks) still fills `sms` SMs, else the narrowest
+    (the most blocks)."""
+    passes = -(-n // db_tile)
+    q_tiles = -(-q_n // SEGMENT_TOPR_QUERIES)
+    for global_slots in (False, True):
+        if not global_slots and passes > TOPR_MAX_SHARED_PASSES:
+            continue
+        fits = []
+        for bn in (64, 32, 16):
+            if db_tile % bn:
+                continue
+            free = TOPR_SMEM_LIMIT - topr_smem_bytes(bn, 0, r_slots,
+                                                     global_slots)
+            stages = min(TOPR_MAX_STAGES, free // TOPR_STAGE_BYTES)
+            if stages >= TOPR_MIN_STAGES:
+                fits.append((bn, stages, global_slots))
+        if fits:
+            full = [f for f in fits if q_tiles * (db_tile // f[0]) >= sms]
+            return full[0] if full else fits[-1]
+    raise ValueError(f"no plan of kernel B for W={db_tile}, R={r_slots}")
+
+
+def pad_columns(*tensors: torch.Tensor, multiple: int = 4):
+    """Zero columns up to a multiple of `multiple` (kernel A's float4 loads
+    and kernel B's TMA boxes take rows of whole 16 bytes): they add 0 to
+    every dot and norm."""
+    d = tensors[0].shape[1]
+    if d % multiple == 0:
+        return tensors
+    pad = (0, -d % multiple)
+    return tuple(torch.nn.functional.pad(t, pad) for t in tensors)
+
+
 def segment_topr_plain(
     db: torch.Tensor, queries: torch.Tensor, db_tile: int, r_slots: int,
     metric: str = "cosine",
@@ -185,21 +247,35 @@ def segment_topr_kernel(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-segment top-R candidate buffers (buf_v, buf_i), [Q, R·W] int32
     each: slot r of lane w at column r·W + w, values as ordered int32,
-    ids as pass indices, empty slots INT32_MIN / -1."""
+    ids as pass indices, empty slots INT32_MIN / -1. On the card, a d that
+    is not a multiple of 4 is zero-padded (`pad_columns`): a copy of both
+    operands, the whole db included, on every call."""
     check_search_inputs(db, queries, metric)
     if db_tile % 64 or r_slots < 1:
         raise ValueError(f"need W % 64 == 0 and R ≥ 1, got {db_tile}, {r_slots}")
     if db.device.type == "cpu":
         return segment_topr_plain(db, queries, db_tile, r_slots, metric)
+    # d % 4 != 0 copies both operands, the whole db included, on every call
+    # (no configuration of the repo has such a d: all are 1024)
+    db, queries = pad_columns(db, queries)
     n, d = db.shape
     q_n = queries.shape[0]
+    dev = db.device
     buf_v = torch.empty((q_n, r_slots * db_tile), dtype=torch.int32,
-                        device=db.device)
+                        device=dev)
     buf_i = torch.empty_like(buf_v)
+    if q_n == 0:
+        return buf_v, buf_i
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bn, stages, global_slots = topr_plan(q_n, n, db_tile, r_slots, sms)
+    # l2: the kernel's squared row norms of the queries, then of the db
+    norms = (torch.empty(q_n + n, dtype=torch.float32, device=dev)
+             if metric == "l2" else None)
     code = _build.library().knn_segment_topr(
-        queries.data_ptr(), db.data_ptr(), buf_v.data_ptr(), buf_i.data_ptr(),
-        q_n, n, d, db_tile, r_slots, int(metric == "l2"),
-        _build.stream_ptr(db.device),
+        queries.data_ptr(), db.data_ptr(),
+        None if norms is None else norms.data_ptr(), buf_v.data_ptr(),
+        buf_i.data_ptr(), q_n, n, d, db_tile, r_slots, int(metric == "l2"),
+        bn, stages, int(global_slots), _build.stream_ptr(dev),
     )
     _build.check(code, "knn_segment_topr")
     segment_topr_kernel.launches += 1

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Kernels G (csrc/ffn_fused.cu), D, E, F and J (the tensor-core route of
-csrc/segment_packed.cu) and C (csrc/sw_grouped.cu) of the PyTorch port on
-one NVIDIA GPU: what ptxas reports for them, which tensor-core and DPX
-instructions their SASS holds (HGMMA: bf16 wgmma, IGMMA: int8 wgmma; C's
-DPX min/max ops, VIMNMX / VIMNMX3 / VIADDMNMX as cuobjdump prints them),
-each against its plain version on a few ragged shapes, and their times at
-the main paths' shapes beside their bounds and the PyTorch yardsticks (G:
-the two bf16 torch.matmul products; F: torch._int_mm, the product alone).
+csrc/segment_packed.cu), B (csrc/segment_topr.cu, 3xTF32 wgmma), A
+(csrc/flat_topk.cu, FFMA) and C (csrc/sw_grouped.cu) of the PyTorch port
+on one NVIDIA GPU: what ptxas reports for them, which tensor-core, FFMA and
+DPX instructions their SASS holds (HGMMA: bf16 or, as HGMMA.TF32, tf32
+wgmma; IGMMA: int8 wgmma; C's DPX min/max ops, VIMNMX / VIMNMX3 /
+VIADDMNMX as cuobjdump prints them), each against its plain version on a
+few ragged shapes, and their times at the main paths' shapes beside their
+bounds and the PyTorch yardsticks (G: the two bf16 torch.matmul products;
+F: torch._int_mm, the product alone; A, B: one fp32 torch.matmul, the
+product alone).
 
     python3 scripts/torch_wgmma_probe.py [--no-ptxas] [--no-times]
 
@@ -28,11 +31,13 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import BF16_TOL, PEAK_OPS, cuda_ms  # noqa: E402
 
-UNITS = ("ffn_fused.cu", "segment_packed.cu", "sw_grouped.cu")
+UNITS = ("ffn_fused.cu", "segment_packed.cu", "segment_topr.cu",
+         "flat_topk.cu", "sw_grouped.cu")
 
 
 def ptxas_report():
-    """ptxas -v of G's, D-F/J's and C's units, compiled side by side."""
+    """ptxas -v of G's, D-F/J's, B's, A's and C's units, compiled side by
+    side."""
     from knn_for_homology_tpu_torch.ops import _build
 
     nvcc = _build._nvcc()
@@ -59,8 +64,9 @@ VARIANT_OF = {"ELi1ELb": "D", "ELi2ELb": "E", "ELi3ELb": "F/J sym",
 
 
 def sass_report(lib_path):
-    """Per kernel of the built library's SASS: HGMMA / IGMMA counts, and
-    the counts of every integer min/max opcode (the DPX ones included)."""
+    """Per kernel of the built library's SASS: HGMMA / IGMMA counts (tf32
+    ones as HGMMA.TF32), FFMA counts of kernel A, and the counts of every
+    integer min/max opcode (the DPX ones included)."""
     from knn_for_homology_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -72,12 +78,16 @@ def sass_report(lib_path):
         if m:
             fn = m.group(1)
             continue
-        m = re.search(r"\*/\s+(?:@!?P\w+\s+)?([A-Z0-9_.]+)", line)
+        m = re.search(r"\*/\s+(?:@!?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)", line)
         if not (fn and m):
             continue
         op = m.group(1)
         key = op.split(".")[0] if "GMMA" in op else op
-        if key in ("HGMMA", "IGMMA") or "MNMX" in op:
+        if key == "HGMMA" and "TF32" in op:
+            key = "HGMMA.TF32"
+        if key == "FFMA" and "flat_topk" not in fn:
+            continue
+        if key in ("HGMMA", "HGMMA.TF32", "IGMMA", "FFMA") or "MNMX" in op:
             c = counts.setdefault(fn, {})
             c[key] = c.get(key, 0) + 1
     for fn, c in sorted(counts.items()):
@@ -164,6 +174,10 @@ def main():
                     ("ELi3ELb", "IGMMA"), ("ELi4ELb", "IGMMA")):
         assert any("segment_packed_mma" in fn and key in fn and op in c
                    for fn, c in sass.items()), (key, op)
+    assert any("segment_topr" in fn and "HGMMA.TF32" in c
+               for fn, c in sass.items()), "no tf32 wgmma in kernel B"
+    assert any("flat_topk_partial" in fn and c.get("FFMA", 0) > 0
+               for fn, c in sass.items()), "no FFMA in kernel A"
     dpx = {op: n for fn, c in sass.items() if "sw_wavefront" in fn
            for op, n in c.items() if op.startswith("VI")}
     print(f"sass sw_wavefront DPX: {dpx}", flush=True)
@@ -226,6 +240,30 @@ def main():
     if args.no_times:
         print("probe ok")
         return
+
+    # A and B at phase 3's shapes: 1024 (A, k = 13) and 512 (B, W = 256,
+    # R = 16) queries against 131072 x 1024 normalised rows
+    from knn_for_homology_tpu_torch.ops import exact_cuda, flat_cuda
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    db = torch.nn.functional.normalize(
+        torch.randn(131072, 1024, device="cuda", generator=gen), dim=1)
+    qf = torch.nn.functional.normalize(
+        torch.randn(1024, 1024, device="cuda", generator=gen), dim=1)
+    mm = cuda_ms(lambda: torch.matmul(qf, db.T))
+    for name, q_n, fn, peak in (
+            ("A", 1024, lambda: flat_cuda.flat_topk_kernel(db, qf, 13),
+             "fp32"),
+            ("B", 512, lambda: exact_cuda.segment_topr_kernel(
+                db, qf[:512].contiguous(), 256, 16, "cosine"), "tf32")):
+        ms = cuda_ms(fn)
+        flop = 2 * q_n * 131072 * 1024
+        ops = flop * (3 if peak == "tf32" else 1)
+        print(json.dumps(dict(
+            kernel=name, queries=q_n, ms=ms, tflops=flop / ms / 1e9,
+            peak_share=ops / (ms * 1e-3) / PEAK_OPS[peak], product=peak,
+            matmul_fp32_1024q_ms=mm, device=device_ms(fn))), flush=True)
+    del db, qf
 
     # G at the encoder's batch: T 7000 x 1024 x 16384
     t, d, f = 7000, 1024, 16384

@@ -101,6 +101,58 @@ def test_kernel_b_buffers_bit_equal_on_integer_data(cuda, metric):
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
 
 
+# Kernel B's routes (ops/exact_cuda.py:topr_plan): Q not a multiple of 64,
+# n not a multiple of W, W = 256 and 1024, R = 1, 2, 16 (slots in shared
+# memory; 16-, 32- and 64-lane tiles) and R = 32, 64 (slots in the output
+# buffers), d = 33 and 45 (zero-padded to whole 16-byte rows) up to 1024
+@pytest.mark.parametrize("q_n,n,w,r_slots,d,metric", [
+    (70, 5000, 256, 16, 33, "l2"),
+    (1, 5000, 256, 1, 1024, "cosine"),
+    (130, 9000, 1024, 16, 40, "ip"),
+    (64, 3000, 256, 1, 1024, "l2"),
+    (65, 3001, 256, 32, 45, "l2"),
+    (200, 20000, 1024, 64, 100, "cosine"),
+    (1500, 3000, 256, 2, 40, "l2"),
+    (2200, 3000, 256, 2, 40, "ip"),
+])
+def test_kernel_b_routes_bit_equal_on_integer_data(cuda, q_n, n, w, r_slots,
+                                                   d, metric):
+    db, qs = _ints(5, n, q_n, d, cuda)
+    got = exact_cuda.segment_topr_kernel(db, qs, w, r_slots, metric)
+    want = exact_cuda.segment_topr_plain(db, qs, w, r_slots, metric)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+
+
+def _gaussian_cosine(seed, n, q, d, device):
+    rng = np.random.RandomState(seed)
+    db = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(device)
+    qs = torch.from_numpy(rng.randn(q, d).astype(np.float32)).to(device)
+    return (torch.nn.functional.normalize(db, dim=1),
+            torch.nn.functional.normalize(qs, dim=1))
+
+
+# Gaussian cosine rows at d = 1024: the kernels' 3xTF32 products drop
+# small.small (~2^-22 of a product) and sum in another order than the plain
+# version's fp32 matmul; the cosines then differ by ~1e-7, so ids may only
+# swap among scores within 1e-5 (the near-tie tolerance of the other tests)
+def test_kernel_a_gaussian_cosine_d1024(cuda):
+    db, qs = _gaussian_cosine(6, 20000, 130, 1024, cuda)
+    got = flat_cuda.flat_topk_kernel(db, qs, 13, metric="cosine")
+    want = flat_cuda.flat_topk_plain(db, qs, 13, metric="cosine")
+    assert_ids_match(*got, *want, atol=1e-5)
+
+
+def test_kernel_b_gaussian_cosine_d1024(cuda):
+    db, qs = _gaussian_cosine(7, 20000, 130, 1024, cuda)
+    w, r = 256, 16
+    got = exact_cuda.epilogue(
+        *exact_cuda.segment_topr_kernel(db, qs, w, r, "cosine"), 300, w, r)
+    want = exact_cuda.epilogue(
+        *exact_cuda.segment_topr_plain(db, qs, w, r, "cosine"), 300, w, r)
+    assert_ids_match(got[0], got[1], want[0], want[1], atol=1e-5)
+
+
 @pytest.mark.parametrize("k,kw", [(300, {}), (100, {"r_slots": 2})])
 def test_exact_topk_ids_equal_full_sort(cuda, k, kw):
     db, qs = _ints(4, 6000, 33, 24, cuda)

@@ -230,6 +230,89 @@ def test_ordered_int_matches_jax():
     assert np.all(np.diff(got[[0, 1, 3, 4, 5, 6]]) > 0)
 
 
+@pytest.mark.parametrize("q_n", [1, 45, 512, 1500, 2200, 32768])
+@pytest.mark.parametrize("w,r", [(128, 1), (256, 2), (256, 6), (256, 16),
+                                 (1024, 16), (256, 25), (256, 32),
+                                 (1024, 64)])
+def test_kernel_b_plan_fits_and_covers_w(q_n, w, r):
+    # every plan of kernel B's planner fits the card's 227 KB a block with
+    # at least three ring stages, its lane tile divides W, and the slots
+    # stay in shared memory wherever they fit
+    for n in (3000, 131072, 2**16 * w):
+        bn, stages, global_slots = exact_cuda.topr_plan(q_n, n, w, r)
+        assert w % bn == 0 and bn in (16, 32, 64)
+        assert exact_cuda.TOPR_MIN_STAGES <= stages <= exact_cuda.TOPR_MAX_STAGES
+        smem = exact_cuda.topr_smem_bytes(bn, stages, r, global_slots)
+        assert smem <= exact_cuda.TOPR_SMEM_LIMIT
+        shared_fits = exact_cuda.topr_smem_bytes(
+            16, exact_cuda.TOPR_MIN_STAGES, r, False
+        ) <= exact_cuda.TOPR_SMEM_LIMIT
+        passes = -(-n // w)
+        assert global_slots == (
+            not shared_fits or passes > exact_cuda.TOPR_MAX_SHARED_PASSES
+        )
+
+
+def test_kernel_b_plan_at_the_exact_search_shapes():
+    # phase 3 / phase 5 / the bench's exact mode: W = 256, R = 16 keeps 96
+    # KB of slots in shared memory with 16-lane tiles (8 x 16 = 128 blocks
+    # at 512 queries); the rescue at R = 32 moves them to device memory
+    assert exact_cuda.plan(131072, 1000, 256) == (256, 16)
+    assert exact_cuda.topr_plan(512, 131072, 256, 16) == (16, 5, False)
+    assert exact_cuda.topr_plan(512, 131072, 256, 32)[2]
+    # many queries and few slots: the widest tile that still fills the SMs
+    assert exact_cuda.topr_plan(2200, 3000, 256, 2)[0] == 64
+    assert exact_cuda.topr_plan(1500, 3000, 256, 2)[0] == 32
+
+
+@pytest.mark.parametrize("q_n,n", [(1, 20), (70, 3001), (1024, 131072),
+                                   (4096, 131072), (131072, 131072)])
+def test_kernel_a_split_plan(q_n, n):
+    # every split holds at least one 128-row step, and no plan is slower
+    # (in the planner's own model) than one split or one wave
+    splits = flat_cuda.plan_splits(q_n, n)
+    n_tiles = -(-n // flat_cuda.FLAT_ROWS)
+    assert 1 <= splits <= min(n_tiles, flat_cuda.MAX_SPLITS)
+    per_split = -(-n_tiles // splits)
+    assert (splits - 1) * per_split < n_tiles  # no split is empty
+
+    q_tiles = -(-q_n // flat_cuda.FLAT_QUERIES)
+
+    slots = flat_cuda.FLAT_BLOCKS_PER_SM * 132
+
+    def cost(s):
+        waves = -(-q_tiles * s // slots)
+        return waves * (-(-n_tiles // s) + flat_cuda.SPLIT_OVERHEAD)
+
+    assert cost(splits) <= min(cost(1), cost(min(n_tiles, slots)))
+    if (q_n, n) == (1024, 131072):  # phase 3: one wave, most SMs busy
+        assert slots // 2 < q_tiles * splits <= slots
+
+
+@pytest.mark.parametrize("d", [33, 45, 100])
+def test_padded_columns_give_the_same_plain_results(d):
+    # the card wrappers zero-pad d to whole 16-byte rows; the padded
+    # operands give the plain versions' results unchanged
+    rng = np.random.RandomState(d)
+    db = torch.from_numpy(rng.randint(-3, 4, (700, d)).astype(np.float32))
+    qs = torch.from_numpy(rng.randint(-3, 4, (9, d)).astype(np.float32))
+    pdb, pqs = exact_cuda.pad_columns(db, qs)
+    assert pdb.shape[1] % 4 == 0 and pdb.shape[1] - d < 4
+    assert torch.equal(pdb[:, :d], db) and not pdb[:, d:].any()
+    for metric in ("ip", "l2"):
+        for got, want in zip(
+            exact_cuda.segment_topr_plain(pdb, pqs, 128, 5, metric),
+            exact_cuda.segment_topr_plain(db, qs, 128, 5, metric),
+        ):
+            assert torch.equal(got, want)
+        for got, want in zip(
+            flat_cuda.flat_topk_plain(pdb, pqs, 13, metric),
+            flat_cuda.flat_topk_plain(db, qs, 13, metric),
+        ):
+            assert torch.equal(got, want)
+    assert exact_cuda.pad_columns(pdb)[0] is pdb
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     db, qs = _data(10, 50, 3, 8)
     with pytest.raises(ValueError, match="k ≤ 32"):
