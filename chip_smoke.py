@@ -51,11 +51,12 @@ d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
 
 Phase 3 holds kernel A (its FFMA product) at 1024 queries, k = 13, and
 kernel B (3xTF32 wgmma products) at 512 queries of the exact k = 1000 plan,
-each beside two bounds (the fp32 FFMA product and the 3xTF32 one, three
-products at the TF32 rate) and one fp32 torch.matmul of the product alone
-as the yardstick; B also runs with one query repeated on the database as it
-is and sorted by that query's similarity, which splits its time between
-products and inserts. A's and B's entries count their launches in every
+each beside two bounds (bound_ms: the 3xTF32 product, three products at
+the TF32 rate, the card's least time for an fp32-accurate product;
+bound_fp32_ms: the fp32 FFMA product, A's own design) and one fp32
+torch.matmul of the product alone as the yardstick; B also runs with one
+query repeated on the database as it is and sorted by that query's
+similarity, which splits that proxy's time between products and inserts. A's and B's entries count their launches in every
 phase that runs them (launches_by_phase). Phase 3 also holds the encoder's
 kernels at full width: G at 7000 tokens x
 1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128 and
@@ -392,13 +393,13 @@ def check_search_kernels(db, q_all, kernels):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         library="fp32 torch.matmul, product only", product="fp32 FFMA",
         bound_fp32_ms=fp32["bound_ms"], bound_tf32x3_ms=tf32["bound_ms"],
-        **fp32,
+        **tf32,
     )
     log(f"phase 3 kernel A flat_topk [1024 x {N_TRAIN} x {DIM}, k={HITS}]:"
         f" max_abs_err {err:.3g}, {swaps} near-tie swaps, {ms:.3f} ms vs plain"
         f" {plain_ms:.3f} ms, fp32 torch.matmul {lib_ms:.3f} ms, bound"
-        f" {fp32['bound_ms']:.3f} ms fp32 FFMA ({tf32['bound_ms']:.3f} ms"
-        " 3xTF32)")
+        f" {tf32['bound_ms']:.3f} ms 3xTF32 ({fp32['bound_ms']:.3f} ms fp32"
+        " FFMA, A's own product)")
 
     q = q_all[:512].contiguous()
     w, r = exact_cuda.plan(N_TRAIN, 1000, exact_cuda.default_db_tile(1000))
@@ -447,7 +448,8 @@ def check_search_kernels(db, q_all, kernels):
         f" rescue vs full sort: max_abs_err {err_r:.3g}, {swaps_r} swaps;"
         f" one query repeated: {one_ms:.3f} ms, on the db sorted by its"
         f" similarity (inserts in the first R passes only) {sorted_ms:.3f} ms,"
-        f" inserts {one_ms - sorted_ms:.3f} ms")
+        f" inserts {one_ms - sorted_ms:.3f} ms"
+        f" ({(one_ms - sorted_ms) / one_ms:.1%} of the one-query run)")
 
 
 def check_packed_kernels(db, q, kernels):

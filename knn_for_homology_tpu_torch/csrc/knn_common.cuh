@@ -5,9 +5,10 @@
 //
 // The FFMA tile product (D's fp32 route, segment_packed.cu) keeps full
 // fp32: the reference computes these dots at Precision.HIGHEST, and a
-// single TF32 product's ~3 decimal digits would swap near-tie neighbours;
-// kernels A and B take the same precision on the tensor cores as 3xTF32
-// products instead (tf32x3.cuh). 256 threads compute a
+// single TF32 product's ~3 decimal digits would swap near-tie neighbours.
+// Kernel B takes the same precision on the tensor cores as 3xTF32 products
+// (tf32x3.cuh); kernel A keeps its own FFMA product summed in k order
+// (flat_topk.cu says why). 256 threads compute a
 // BM x BN = (16*TM) x (16*TN) block of q . db^T, staging BK = 16 columns
 // of each operand in shared memory per step. Operands may be float, bf16
 // or int8; they are widened to float (exactly) when staged.

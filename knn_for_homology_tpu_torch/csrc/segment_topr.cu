@@ -17,8 +17,9 @@
 // wgmma (tf32x3.cuh: fp32-accurate, three tensor-core products a k step);
 // the [Q, N] similarity block never reaches device memory. On the TPU the
 // R-slot state lived in VMEM across a sequential pass axis; here a block
-// owns 64 queries x BN lanes (one consumer warpgroup and a producer warp)
-// and loops over ALL passes itself, so no cross-block merge is needed.
+// owns 64 queries x BN = 16 lanes (one consumer warpgroup and a producer
+// warp) and loops over ALL passes itself, so no cross-block merge is
+// needed.
 // Each thread owns the same accumulator positions on every pass, so the
 // R-th kept value of each of its (query, lane) pairs stays in a register
 // and a candidate costs one compare. The insert is kept off the products'
@@ -29,11 +30,16 @@
 // The slots are two words: the ordered value (int32, exact) and the pass
 // index (uint16 in shared memory: 6 bytes a slot, so passes <= 65535). At
 // the phase-3 / bench plan (W = 256, R = 16) 64 queries x 16 lanes hold 96
-// KB of slots beside a ring of 24 KB stages. The tile (BN) and the slots'
-// home come from the wrapper's planner (ops/exact_cuda.py:topr_plan):
+// KB of slots beside a ring of 24 KB stages. The slots' home and the ring's
+// depth come from the wrapper's planner (ops/exact_cuda.py:topr_plan):
 // shared memory while the block's slots and >= 3 stages fit in 227 KB,
 // else the output buffers in device memory (large R: the 2R rescue, up to
-// 64), and the widest lane tile whose grid still fills the card.
+// 64).
+//
+// One lane tile, BN = 16: its slots fit wherever a wider tile's fit, it
+// gives the most blocks ((Q / 64) x (W / 16): 128 at 512 queries and W =
+// 256), and a step covers 64 / BN passes of 64 db rows whatever BN is, so
+// a wider tile reads no fewer query or db bytes.
 
 #include <cuda.h>
 #include <limits.h>
@@ -51,6 +57,9 @@ using namespace knn_tf32;
 constexpr int QUEUE = 64;
 constexpr int QUEUE_BYTES = 4 * 2 * QUEUE * sizeof(int);
 constexpr uint16_t NO_PASS = 0xFFFF;
+constexpr int BN = 16;              // lanes a block
+constexpr int PB = TILE_ROWS / BN;  // passes a step
+constexpr int NJ = BN / 8;          // 8-column groups of one pass
 
 struct Params {
   const float* q_sq;  // l2: [q_n] squared query norms
@@ -61,8 +70,8 @@ struct Params {
   bool l2, global_slots;
 };
 
-__host__ __device__ constexpr size_t slot_bytes(int bn, int r) {
-  return (size_t)BM * bn * r * (sizeof(int) + sizeof(uint16_t));
+__host__ __device__ constexpr size_t slot_bytes(int r) {
+  return (size_t)BM * BN * r * (sizeof(int) + sizeof(uint16_t));
 }
 
 // Insert (v, pass), v > vals[(r-1)*stride], into a descending list of r
@@ -86,7 +95,6 @@ __device__ __forceinline__ int insert_slot(int* vals, Id* ids, size_t stride,
 
 // One queued winner (`key` = il * BN + jl of the tile) into the block's
 // shared slots or its rows of the output buffers.
-template <int BN>
 __device__ __forceinline__ void insert_winner(const Params& p, int* sv,
                                               uint16_t* si, int a0, int lane0,
                                               int key, int v, int pass) {
@@ -107,12 +115,9 @@ __device__ __forceinline__ void insert_winner(const Params& p, int* sv,
 // chunk that the ring brings serves PB passes (one pass a step re-read the
 // query rows from L2 every pass: 21 GB at phase 3's 512 queries). The
 // winners are then inserted pass by pass, in pass order.
-template <int BN>
 __global__ void __launch_bounds__(THREADS)
 segment_topr(const __grid_constant__ CUtensorMap q_map,
              const __grid_constant__ CUtensorMap db_map, const Params p) {
-  constexpr int PB = TILE_ROWS / BN;
-  constexpr int NJ = BN / 8;  // 8-column groups of one pass
   extern __shared__ unsigned char smem_raw[];
   Ring ring;
   int* queues = reinterpret_cast<int*>(ring_setup(smem_raw, p.stages, ring));
@@ -207,14 +212,14 @@ segment_topr(const __grid_constant__ CUtensorMap q_map,
           if (n >= 32) {  // a full queue: one insert per lane
             __syncwarp();
             n -= 32;
-            insert_winner<BN>(p, sv, si, a0, lane0, q_key[n + lane],
+            insert_winner(p, sv, si, a0, lane0, q_key[n + lane],
                               q_val[n + lane], pass);
             __syncwarp();
           }
         }
       __syncwarp();
       if (lane < n)
-        insert_winner<BN>(p, sv, si, a0, lane0, q_key[lane], q_val[lane],
+        insert_winner(p, sv, si, a0, lane0, q_key[lane], q_val[lane],
                           pass);
       __syncwarp();
       // the new R-th kept value of each pair this thread won
@@ -244,24 +249,21 @@ segment_topr(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-size_t smem_bytes(int bn, int stages, int r, bool global_slots) {
-  return ring_bytes(stages) + QUEUE_BYTES +
-         (global_slots ? 0 : slot_bytes(bn, r));
+size_t smem_bytes(int stages, int r, bool global_slots) {
+  return ring_bytes(stages) + QUEUE_BYTES + (global_slots ? 0 : slot_bytes(r));
 }
 
-template <int BN>
 cudaError_t launch(const float* q, const float* db, const Params& p,
                    int d, size_t smem, cudaStream_t stream) {
   CUtensorMap q_map, db_map;
   if (!make_f32_map(&q_map, q, p.q_n, d, BM) ||
       !make_f32_map(&db_map, db, p.n, d, BN))
     return cudaErrorInvalidValue;
-  auto kernel = segment_topr<BN>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      segment_topr, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.q_n + BM - 1) / BM, p.w / BN);
-  kernel<<<grid, THREADS, smem, stream>>>(q_map, db_map, p);
+  segment_topr<<<grid, THREADS, smem, stream>>>(q_map, db_map, p);
   return cudaGetLastError();
 }
 
@@ -269,20 +271,20 @@ cudaError_t launch(const float* q, const float* db, const Params& p,
 
 // q [q_n, d], db [n, d] fp32 rows, d % 4 == 0 (TMA rows of whole 16
 // bytes); norms: [q_n + n] f32 scratch for l2 (the squared norms of the
-// queries, then of the db rows), else unused. The plan (bn lanes a block,
-// ring stages, slots in device memory) is the wrapper's
-// (ops/exact_cuda.py:topr_plan); a plan that does not fit is refused.
+// queries, then of the db rows), else unused. The plan (ring stages,
+// slots in device memory) is the wrapper's (ops/exact_cuda.py:topr_plan);
+// a plan that does not fit is refused.
 extern "C" int knn_segment_topr(const float* q, const float* db, float* norms,
                                 int* buf_v, int* buf_i, int q_n, int n, int d,
-                                int w, int r_slots, int l2, int bn, int stages,
+                                int w, int r_slots, int l2, int stages,
                                 int global_slots, cudaStream_t stream) {
   const int passes = n > 0 && w > 0 ? (n + w - 1) / w : 0;
-  if ((bn != 16 && bn != 32 && bn != 64) || w < bn || w % bn != 0 ||
+  if (w < BN || w % BN != 0 ||
       r_slots < 1 || q_n < 1 || n < 1 || d < 4 || d % 4 != 0 || stages < 2 ||
       stages > MAX_STAGES || (!global_slots && passes > NO_PASS) ||
       (l2 && norms == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(bn, stages, r_slots, global_slots != 0);
+  const size_t smem = smem_bytes(stages, r_slots, global_slots != 0);
   if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   Params p{};
   p.buf_v = buf_v;
@@ -300,9 +302,5 @@ extern "C" int knn_segment_topr(const float* q, const float* db, float* norms,
       err = knn::launch_norms<float>(db, n, d, norms + q_n, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  switch (bn) {
-    case 16: return (int)launch<16>(q, db, p, d, smem, stream);
-    case 32: return (int)launch<32>(q, db, p, d, smem, stream);
-    default: return (int)launch<64>(q, db, p, d, smem, stream);
-  }
+  return (int)launch(q, db, p, d, smem, stream);
 }

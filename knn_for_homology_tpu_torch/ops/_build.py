@@ -42,10 +42,10 @@ SIGNATURES = {
     "knn_flat_topk": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ],
-    # q, db, norms, buf_v, buf_i, q_n, n, d, w, r, l2, bn, stages,
-    # global_slots, stream
+    # q, db, norms, buf_v, buf_i, q_n, n, d, w, r, l2, stages, global_slots,
+    # stream
     "knn_segment_topr": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     # q, q_lo, db, scales, norms, buf, q_n, n, d, w, r, jbits, variant, l2,
     # stream

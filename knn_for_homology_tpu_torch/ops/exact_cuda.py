@@ -44,10 +44,11 @@ F32_PACKED_QUERIES = 32
 
 # Kernel B's shared memory (csrc/segment_topr.cu, csrc/tf32x3.cuh): a ring
 # of stages, each a 32-column chunk of the block's 64 query rows and of the
-# 64 db rows of a step (its BN lanes in 64 / BN passes), split in place
-# into tf32 "big" with the "small" half behind them; the warps' winner
-# queues; the slots unless they live in the output buffers (int32 value +
-# uint16 pass index: 6 bytes)
+# 64 db rows of a step (its 16 lanes in 4 passes), split in place into
+# tf32 "big" with the "small" half behind them; the warps' winner queues;
+# the slots of its 64 queries x 16 lanes unless they live in the output
+# buffers (int32 value + uint16 pass index: 6 bytes)
+TOPR_LANES = 16
 TOPR_SMEM_LIMIT = 227 * 1024
 TOPR_RING_FIXED = 1024 + 2 * 8 * 8  # alignment slack, full / empty barriers
 TOPR_QUEUE_BYTES = 4 * 2 * 64 * 4
@@ -162,40 +163,25 @@ def plan_fingerprint(
     }
 
 
-def topr_smem_bytes(bn: int, stages: int, r_slots: int,
-                    global_slots: bool) -> int:
+def topr_smem_bytes(stages: int, r_slots: int, global_slots: bool) -> int:
     """Kernel B's shared memory for one block of a plan (as the kernel
     computes it; it refuses a plan above TOPR_SMEM_LIMIT)."""
-    slots = 0 if global_slots else SEGMENT_TOPR_QUERIES * bn * r_slots * 6
+    slots = (0 if global_slots
+             else SEGMENT_TOPR_QUERIES * TOPR_LANES * r_slots * 6)
     return TOPR_RING_FIXED + stages * TOPR_STAGE_BYTES + TOPR_QUEUE_BYTES + slots
 
 
-def topr_plan(q_n: int, n: int, db_tile: int, r_slots: int,
-              sms: int = 132) -> Tuple[int, int, bool]:
-    """Kernel B's launch plan (BN lanes a block, ring stages, slots in
-    device memory): slots in shared memory wherever they fit beside
-    TOPR_MIN_STAGES stages (and passes fit the uint16 pass index), else in
-    the output buffers; of the lane tiles that fit, the widest whose grid
-    ((Q / 64) x (W / BN) blocks) still fills `sms` SMs, else the narrowest
-    (the most blocks)."""
-    passes = -(-n // db_tile)
-    q_tiles = -(-q_n // SEGMENT_TOPR_QUERIES)
-    for global_slots in (False, True):
-        if not global_slots and passes > TOPR_MAX_SHARED_PASSES:
-            continue
-        fits = []
-        for bn in (64, 32, 16):
-            if db_tile % bn:
-                continue
-            free = TOPR_SMEM_LIMIT - topr_smem_bytes(bn, 0, r_slots,
-                                                     global_slots)
-            stages = min(TOPR_MAX_STAGES, free // TOPR_STAGE_BYTES)
-            if stages >= TOPR_MIN_STAGES:
-                fits.append((bn, stages, global_slots))
-        if fits:
-            full = [f for f in fits if q_tiles * (db_tile // f[0]) >= sms]
-            return full[0] if full else fits[-1]
-    raise ValueError(f"no plan of kernel B for W={db_tile}, R={r_slots}")
+def topr_plan(n: int, db_tile: int, r_slots: int) -> Tuple[int, bool]:
+    """Kernel B's launch plan (ring stages, slots in device memory): slots
+    in shared memory wherever they fit beside TOPR_MIN_STAGES stages (and
+    the passes fit the uint16 pass index), else in the output buffers; as
+    many stages as then fit, up to TOPR_MAX_STAGES."""
+    global_slots = (
+        -(-n // db_tile) > TOPR_MAX_SHARED_PASSES
+        or topr_smem_bytes(TOPR_MIN_STAGES, r_slots, False) > TOPR_SMEM_LIMIT
+    )
+    free = TOPR_SMEM_LIMIT - topr_smem_bytes(0, r_slots, global_slots)
+    return min(TOPR_MAX_STAGES, free // TOPR_STAGE_BYTES), global_slots
 
 
 def pad_columns(*tensors: torch.Tensor, multiple: int = 4):
@@ -249,7 +235,16 @@ def segment_topr_kernel(
     each: slot r of lane w at column r·W + w, values as ordered int32,
     ids as pass indices, empty slots INT32_MIN / -1. On the card, a d that
     is not a multiple of 4 is zero-padded (`pad_columns`): a copy of both
-    operands, the whole db included, on every call."""
+    operands, the whole db included, on every call.
+
+    The card's products are 3xTF32 (csrc/tf32x3.cuh). Where every dot is
+    exact in fp32 (small integers, bf16 rows) the buffers equal the plain
+    version's bit for bit. Elsewhere both round, in other orders: a score
+    may sit a few ulps from the plain fp32 route's (3.05e-5 at inner
+    products up to 57, d = 100; PERF.md §6, PR 8), though no further from
+    the fp64 dot than the plain route's farthest score plus an ulp
+    (tests/test_torch_cuda_kernels.py:test_kernel_b_gaussian), so ids may
+    differ from the plain version's by swaps among such near-ties."""
     check_search_inputs(db, queries, metric)
     if db_tile % 64 or r_slots < 1:
         raise ValueError(f"need W % 64 == 0 and R ≥ 1, got {db_tile}, {r_slots}")
@@ -266,8 +261,7 @@ def segment_topr_kernel(
     buf_i = torch.empty_like(buf_v)
     if q_n == 0:
         return buf_v, buf_i
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    bn, stages, global_slots = topr_plan(q_n, n, db_tile, r_slots, sms)
+    stages, global_slots = topr_plan(n, db_tile, r_slots)
     # l2: the kernel's squared row norms of the queries, then of the db
     norms = (torch.empty(q_n + n, dtype=torch.float32, device=dev)
              if metric == "l2" else None)
@@ -275,7 +269,7 @@ def segment_topr_kernel(
         queries.data_ptr(), db.data_ptr(),
         None if norms is None else norms.data_ptr(), buf_v.data_ptr(),
         buf_i.data_ptr(), q_n, n, d, db_tile, r_slots, int(metric == "l2"),
-        bn, stages, int(global_slots), _build.stream_ptr(dev),
+        stages, int(global_slots), _build.stream_ptr(dev),
     )
     _build.check(code, "knn_segment_topr")
     segment_topr_kernel.launches += 1
@@ -333,7 +327,10 @@ def exact_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over the whole database (the large-k path). Returns
     (sims [Q, k] descending, ids [Q, k] int32) in the internal convention;
-    ids equal a full stable sort's, k > N pads with (-inf, -1).
+    ids equal a full stable sort's of the similarities the route computes,
+    k > N pads with (-inf, -1). On the card those are kernel B's 3xTF32
+    products: where they differ from the plain fp32 route's by a few ulps
+    (`segment_topr_kernel`), ids may swap among such near-ties.
 
     `exact=False` goes to the packed approx kernels (ops/packed_cuda.py) at
     `recall_target`, as the reference's exact_pallas_topk does."""

@@ -26,6 +26,7 @@ from knn_for_homology_tpu_torch.ops import (
     slab_cuda,
 )
 from knn_for_homology_tpu_torch.ops.align import encode_sequence
+from knn_for_homology_tpu_torch.ops.distance import similarity_block
 from knn_for_homology_tpu_torch.ops.topk import oneshot_topk
 from knn_for_homology_tpu_torch.search.flat import FlatIndex
 from knn_for_homology_tpu_torch.search.ivf import IVFIndex
@@ -101,10 +102,11 @@ def test_kernel_b_buffers_bit_equal_on_integer_data(cuda, metric):
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
 
 
-# Kernel B's routes (ops/exact_cuda.py:topr_plan): Q not a multiple of 64,
-# n not a multiple of W, W = 256 and 1024, R = 1, 2, 16 (slots in shared
-# memory; 16-, 32- and 64-lane tiles) and R = 32, 64 (slots in the output
-# buffers), d = 33 and 45 (zero-padded to whole 16-byte rows) up to 1024
+# Kernel B's routes (ops/exact_cuda.py:topr_plan): Q not a multiple of 64
+# and up to 2200 (35 query tiles), n not a multiple of W, W = 256 and 1024,
+# R = 1, 2, 16 (slots in shared memory, five to eight ring stages) and R =
+# 32, 64 (slots in the output buffers), d = 33 and 45 (zero-padded to whole
+# 16-byte rows) up to 1024
 @pytest.mark.parametrize("q_n,n,w,r_slots,d,metric", [
     (70, 5000, 256, 16, 33, "l2"),
     (1, 5000, 256, 1, 1024, "cosine"),
@@ -151,6 +153,37 @@ def test_kernel_b_gaussian_cosine_d1024(cuda):
     want = exact_cuda.epilogue(
         *exact_cuda.segment_topr_plain(db, qs, w, r, "cosine"), 300, w, r)
     assert_ids_match(got[0], got[1], want[0], want[1], atol=1e-5)
+
+
+# Unnormalised Gaussian rows, the inputs of test_kernel_a_gaussian: B's
+# 3xTF32 scores and the plain fp32 route's both round, in other orders, and
+# may sit several ulps apart (3.05e-5 at inner products up to 57;
+# scripts/torch_tf32x3_accuracy.py). So B is held to fp64: no score further
+# from the fp64 similarity of its id than the plain route's farthest score
+# is, plus one ulp of the largest |score|; ids those of the fp64 sort but
+# for swaps among scores within twice that (each side of a swap may be off
+# by the tolerance)
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_kernel_b_gaussian(cuda, metric):
+    rng = np.random.RandomState(2)
+    db = torch.from_numpy(rng.randn(20000, 100).astype(np.float32)).to(cuda)
+    qs = torch.from_numpy(rng.randn(130, 100).astype(np.float32)).to(cuda)
+    w, r, k = 256, 16, 300
+    got_v, got_i, suspect = exact_cuda.epilogue(
+        *exact_cuda.segment_topr_kernel(db, qs, w, r, metric), k, w, r)
+    plain_v, plain_i, _ = exact_cuda.epilogue(
+        *exact_cuda.segment_topr_plain(db, qs, w, r, metric), k, w, r)
+    assert not bool(suspect.any())
+    exact = similarity_block(qs.double(), db.double(), metric)
+
+    def off(vals, ids):
+        return float((vals.double() - exact.gather(1, ids.long())).abs().max())
+
+    ulp = float(np.spacing(np.float32(plain_v.abs().max().item())))
+    tol = off(plain_v, plain_i) + ulp
+    assert off(got_v, got_i) <= tol
+    want_v, want_i = oneshot_topk(db.double(), qs.double(), k, metric=metric)
+    assert_ids_match(got_v.double(), got_i, want_v, want_i, atol=2 * tol)
 
 
 @pytest.mark.parametrize("k,kw", [(300, {}), (100, {"r_slots": 2})])

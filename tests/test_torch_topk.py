@@ -230,39 +230,38 @@ def test_ordered_int_matches_jax():
     assert np.all(np.diff(got[[0, 1, 3, 4, 5, 6]]) > 0)
 
 
-@pytest.mark.parametrize("q_n", [1, 45, 512, 1500, 2200, 32768])
+@pytest.mark.parametrize("passes", [1, 2, 17, 512, 0xFFFF, 0x10000])
 @pytest.mark.parametrize("w,r", [(128, 1), (256, 2), (256, 6), (256, 16),
                                  (1024, 16), (256, 25), (256, 32),
                                  (1024, 64)])
-def test_kernel_b_plan_fits_and_covers_w(q_n, w, r):
+def test_kernel_b_plan_fits_and_covers_w(passes, w, r):
     # every plan of kernel B's planner fits the card's 227 KB a block with
-    # at least three ring stages, its lane tile divides W, and the slots
-    # stay in shared memory wherever they fit
-    for n in (3000, 131072, 2**16 * w):
-        bn, stages, global_slots = exact_cuda.topr_plan(q_n, n, w, r)
-        assert w % bn == 0 and bn in (16, 32, 64)
+    # at least three ring stages, its 16-lane tile divides W, and the slots
+    # stay in shared memory wherever they fit and every pass index fits
+    # their uint16 field (0xFFFF marks an empty slot)
+    assert w % exact_cuda.TOPR_LANES == 0
+    for n in (passes * w - w // 2, passes * w):
+        stages, global_slots = exact_cuda.topr_plan(n, w, r)
         assert exact_cuda.TOPR_MIN_STAGES <= stages <= exact_cuda.TOPR_MAX_STAGES
-        smem = exact_cuda.topr_smem_bytes(bn, stages, r, global_slots)
+        smem = exact_cuda.topr_smem_bytes(stages, r, global_slots)
         assert smem <= exact_cuda.TOPR_SMEM_LIMIT
+        assert smem + exact_cuda.TOPR_STAGE_BYTES > exact_cuda.TOPR_SMEM_LIMIT \
+            or stages == exact_cuda.TOPR_MAX_STAGES
         shared_fits = exact_cuda.topr_smem_bytes(
-            16, exact_cuda.TOPR_MIN_STAGES, r, False
+            exact_cuda.TOPR_MIN_STAGES, r, False
         ) <= exact_cuda.TOPR_SMEM_LIMIT
-        passes = -(-n // w)
-        assert global_slots == (
-            not shared_fits or passes > exact_cuda.TOPR_MAX_SHARED_PASSES
-        )
+        assert global_slots == (not shared_fits or passes > 0xFFFF)
 
 
 def test_kernel_b_plan_at_the_exact_search_shapes():
     # phase 3 / phase 5 / the bench's exact mode: W = 256, R = 16 keeps 96
-    # KB of slots in shared memory with 16-lane tiles (8 x 16 = 128 blocks
+    # KB of slots in shared memory beside five stages (8 x 16 = 128 blocks
     # at 512 queries); the rescue at R = 32 moves them to device memory
     assert exact_cuda.plan(131072, 1000, 256) == (256, 16)
-    assert exact_cuda.topr_plan(512, 131072, 256, 16) == (16, 5, False)
-    assert exact_cuda.topr_plan(512, 131072, 256, 32)[2]
-    # many queries and few slots: the widest tile that still fills the SMs
-    assert exact_cuda.topr_plan(2200, 3000, 256, 2)[0] == 64
-    assert exact_cuda.topr_plan(1500, 3000, 256, 2)[0] == 32
+    assert exact_cuda.topr_plan(131072, 256, 16) == (5, False)
+    assert exact_cuda.topr_plan(131072, 256, 32) == (8, True)
+    # few slots: the ring takes its full eight stages beside them
+    assert exact_cuda.topr_plan(3000, 256, 2) == (8, False)
 
 
 @pytest.mark.parametrize("q_n,n", [(1, 20), (70, 3001), (1024, 131072),
