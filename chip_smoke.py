@@ -62,8 +62,12 @@ kernels at full width: G at 7000 tokens x
 1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128 and
 27 x 32 x 256 x 128 (H and I fed the [H, 2L-1] offset-bias table); and the
 IVF path's kernels: J at 1024 queries x 256 cells (32768 rows) x 1024, k =
-1000 (sym and sym2, buffers bit-equal), K at 4096 queries x 32 probes x
-128 x 1024. Library yardsticks, which the port never calls: for G, its two
+1000 (sym and sym2, buffers bit-equal); K (2xTF32 wgmma products) at 32
+probes x 128 x 1024 and three sharing levels of the probed nodes: (a) 4096
+queries uniform over the 2048 cells (~64 pairs a node), (b) 256 queries
+uniform (phase 9's online shape, ~4), (c) 64 queries probing every cell
+once; each beside its two-TF32-product bound (bound_ms) and its fp32
+FFMA bound (bound_fp32_ms), its entry "sharing" holding all three. Library yardsticks, which the port never calls: for G, its two
 products as two bf16 torch.matmul calls (with the relu between them); for
 H and I, scaled_dot_product_attention; for F and J, torch._int_mm on the
 same int8 operands (the product only: no scales, no top-R slots). Each
@@ -149,6 +153,7 @@ ENC_MAX_REL_ERR = 0.2
 # phase 3, kernels J and K at the IVF path's shapes: the phase-9 index's
 # 2048 cells of 64 members (the auto sizing, half full); J scans 256 of
 # them for 1024 queries at k = 1000, K expands 32 probes for 4096 queries
+# (and for 256 and 64, check_ivf_kernels)
 IVF_CELLS, IVF_FILL = 2048, 64
 J_QUERIES, J_BUDGET = 1024, 256
 K_QUERIES, K_PROBES = 4096, 32
@@ -796,8 +801,10 @@ def check_encoder_kernels(kernels, seed):
 def check_ivf_kernels(db, q_all, kernels, seed):
     """Phase 3 for kernels J and K on a slab table of the phase-9 layout
     (IVF_CELLS cells of IVF_FILL members of db, packed as the index packs
-    them): J's buffers bit-equal to plain (sym and sym2), K's ids equal and
-    sims within K_RTOL. No one PyTorch call computes either function (J's
+    them): J's buffers bit-equal to plain (sym and sym2), K's ids and -inf
+    lanes equal and sims within K_RTOL at three sharing levels of the
+    probed nodes (K's entry takes shape (a) and lists all three under
+    "sharing"). No one PyTorch call computes either function (J's
     per-lane packed top-R over an indirect row set; K's gather, dot, scale
     and -inf padding), so neither has a library time."""
     import torch
@@ -857,39 +864,64 @@ def check_ivf_kernels(db, q_all, kernels, seed):
         **j_bound,
     )
 
-    # K: 4096 queries x 32 probes of 128 rows
-    sel = torch.randint(0, IVF_CELLS, (K_QUERIES, K_PROBES), generator=gen,
-                        device=dev, dtype=torch.int32)
-    qk = q_all[:K_QUERIES].contiguous()
-    args = (sel, qk, pv, pi, sc, 128)
-    got_s, got_n = slab_cuda.beam_expand(*args)
-    want_s, want_n = slab_cuda.beam_expand_plain(*args)
-    assert torch.equal(got_n, want_n), "K: ids differ from plain"
-    fin = torch.isfinite(want_s)
-    assert torch.equal(fin, torch.isfinite(got_s)), "K: -inf lanes differ"
-    err = float((got_s[fin] - want_s[fin]).abs().max())
-    scale = float(want_s[fin].abs().max())
-    assert err <= K_RTOL * scale, f"K: max_abs_err {err} > {K_RTOL} x {scale}"
-    ms = cuda_ms(lambda: slab_cuda.beam_expand(*args))
-    plain_ms = cuda_ms(lambda: slab_cuda.beam_expand_plain(*args))
-    # bytes: the queries and probe lists, each slab probed (with its ids and
-    # scales) once, the outputs once; operations: an fp32 dot per lane
-    touched = int(torch.unique(sel).numel())
-    d = qk.shape[1]
+    # K at three sharing levels of the pairs' nodes (K reads each probed
+    # slab once per tile of up to 64 pairs of one node)
+    cases = {
+        "a": torch.randint(0, IVF_CELLS, (K_QUERIES, K_PROBES), generator=gen,
+                           device=dev, dtype=torch.int32),
+        "b": torch.randint(0, IVF_CELLS, (ONLINE_QUERIES, K_PROBES),
+                           generator=gen, device=dev, dtype=torch.int32),
+        "c": torch.randperm(IVF_CELLS, generator=gen, device=dev).view(
+            IVF_CELLS // K_PROBES, K_PROBES).to(torch.int32),
+    }
+    k_cases = {}
+    for key, sel in cases.items():
+        qk = q_all[:sel.shape[0]].contiguous()
+        args = (sel, qk, pv, pi, sc, 128)
+        got_s, got_n = slab_cuda.beam_expand(*args)
+        want_s, want_n = slab_cuda.beam_expand_plain(*args)
+        assert torch.equal(got_n, want_n), f"K {key}: ids differ from plain"
+        fin = torch.isfinite(want_s)
+        assert torch.equal(fin, torch.isfinite(got_s)), (
+            f"K {key}: -inf lanes differ")
+        err = float((got_s[fin] - want_s[fin]).abs().max())
+        scale = float(want_s[fin].abs().max())
+        assert err <= K_RTOL * scale, (
+            f"K {key}: max_abs_err {err} > {K_RTOL} x {scale}")
+        ms = cuda_ms(lambda: slab_cuda.beam_expand(*args))
+        plain_ms = cuda_ms(lambda: slab_cuda.beam_expand_plain(*args))
+        # bytes: the queries and probe lists, each slab probed (with its
+        # ids and scales) once, the outputs once; operations: an fp32 dot
+        # per lane, as two TF32 products (the card's least time for an
+        # fp32-accurate product of int8 rows), beside one fp32 FFMA
+        touched = int(torch.unique(sel).numel())
+        d = qk.shape[1]
+        flops = 2 * sel.numel() * 128 * d
+        nbytes = (tensor_bytes(sel, qk, got_s, got_n)
+                  + touched * 128 * (d + 8))
+        tf32 = bound(2 * flops, "tf32", nbytes)
+        k_cases[key] = dict(
+            queries=sel.shape[0], probes=K_PROBES, nodes=touched,
+            pairs_per_node=sel.numel() / touched, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_fp32_ms=bound(flops, "fp32",
+                                                   nbytes)["bound_ms"],
+            **tf32)
+        log(f"phase 3 kernel K slab_expand ({key}) [{sel.shape[0]} x"
+            f" {K_PROBES} probes x 128 x {d}, {touched} nodes,"
+            f" {sel.numel() / touched:.2f} pairs a node]: ids equal,"
+            f" max_abs_err {err:.3g}, {ms:.3f} ms vs plain {plain_ms:.3f} ms,"
+            f" bound {tf32['bound_ms']:.3f} ms ({tf32['bound_by']}, two TF32"
+            f" products; fp32 FFMA {k_cases[key]['bound_fp32_ms']:.3f} ms)")
     kernels["K"] = dict(
         name="slab_expand", route="cuda",
         source="knn_for_homology_tpu_torch/csrc/slab_expand.cu",
         replaces="knn_for_homology_tpu/ops/graph_pallas.py:139",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        library=None,
-        **bound(2 * K_QUERIES * K_PROBES * 128 * d, "fp32",
-                tensor_bytes(sel, qk, got_s, got_n)
-                + touched * 128 * (d + 8)),
+        library_ms=None, library=None, product="2xTF32 wgmma",
+        **{k: v for k, v in k_cases["a"].items()
+           if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_fp32_ms")},
+        sharing=k_cases,
     )
-    log(f"phase 3 kernel K slab_expand [{K_QUERIES} x {K_PROBES} probes x 128"
-        f" x {d}]: ids equal, max_abs_err {err:.3g}, {ms:.3f} ms vs plain"
-        f" {plain_ms:.3f} ms, bound {kernels['K']['bound_ms']:.3f} ms"
-        f" ({kernels['K']['bound_by']})")
 
 
 @contextlib.contextmanager

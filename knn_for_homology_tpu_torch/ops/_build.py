@@ -3,7 +3,7 @@
 Every `csrc/*.cu` compiles in its own nvcc process, all started together,
 and one more nvcc call links the objects into a shared library with a plain
 C interface (no PyTorch headers: seconds instead of minutes), against
-libcuda (`-lcuda`, for the TMA maps of kernels B and D-J; the
+libcuda (`-lcuda`, for the TMA maps of kernels B and D-K; the
 toolkit's stub at link time, the installed libcuda.so.1 at load time). The library
 lands in `build/torch_kernels/` at the repository root (git-ignored),
 named by a hash of the sources and flags (taken once per process), so an
@@ -57,8 +57,13 @@ SIGNATURES = {
     "knn_ivf_indirect": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
-    # sel, q, pv, pi, sc, sims, nbrs, q_n, e, d, deg_p, n_nodes, stream
-    "knn_slab_expand": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # nodes, pairs, t_max, tiles, stream
+    "knn_slab_tiles": [_P, _I, _I, _P, _P],
+    # q, pv, pi, sc, order, nodes, tiles, sims, nbrs, q_n, e, d, deg_p,
+    # n_nodes, t_max, stream
+    "knn_slab_expand": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ],
     # q, t, blosum, bound, live, counters, out, g, lq, lt, k, segments,
     # gap_first, gap_ext, stream
     "knn_sw_grouped": [

@@ -11,7 +11,9 @@ A group is a node's adjacency for a graph, or a cluster's members for the
 IVF index (search/ivf.py, deg_p = 128).
 
 `beam_expand` scores each query against the slabs of its selected groups:
-kernel K on a CUDA tensor, `beam_expand_plain` on a CPU tensor.
+kernel K on a CUDA tensor, `beam_expand_plain` on a CPU tensor. Kernel K
+reads each probed slab once per tile of up to NQ (query, probe) pairs of
+one node, from the plan `slab_plan` makes on the device.
 """
 
 from typing import Tuple
@@ -22,6 +24,12 @@ from . import _build
 from .packed_cuda import quantize_int8
 
 LANE = 128
+# (query, probe) pairs of one node a tile of kernel K scores against one
+# read of its slab: the kernel's widest product (wgmma n64); tiles of at
+# most NARROW pairs go to its narrow launch (csrc/slab_expand.cu's NQ and
+# NARROW)
+NQ = 64
+NARROW = 16
 
 # queries per step of the plain version: bounds its [chunk, E*deg_p, d]
 # fp32 slab transient to ~1 GiB
@@ -110,6 +118,47 @@ def beam_expand_plain(
     return sims * packed_scales[nodes], packed_ids[nodes]
 
 
+def slab_plan(
+    sel_ids: torch.Tensor, n_nodes: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K's node-major tile plan, with no host sync (graph search
+    calls K in a loop). The Q·E pairs p = q·E + j are sorted stably by their
+    clamped node (torch ops); each node's run is cut into tiles of at most
+    NQ pairs: the tile kernel of csrc/slab_expand.cu on a CUDA tensor, its
+    plain version here on a CPU tensor. → (order [Q·E] int32: pair ids in
+    sorted order; nodes [Q·E] int32: their clamped nodes; tiles
+    [2 + 4·t_max] int32: the counts of wide (more than NARROW pairs) and
+    narrow tiles, then t_max slots of (first sorted position, pairs) for
+    each kind: by position on the CPU, in no fixed order on the card).
+    t_max = ⌈Q·E / NQ⌉ + min(N, Q·E) bounds either count from shapes
+    alone."""
+    pairs = sel_ids.numel()
+    flat = sel_ids.reshape(-1).to(torch.int32).clamp(0, n_nodes - 1)
+    nodes, order = torch.sort(flat, stable=True)
+    t_max = -(-pairs // NQ) + min(n_nodes, pairs)
+    tiles = torch.empty(2 + 4 * t_max, dtype=torch.int32, device=flat.device)
+    if nodes.device.type == "cpu":
+        pos = torch.arange(pairs)
+        # each pair's rank in its node's run
+        rank = pos - torch.searchsorted(nodes, nodes)
+        starts = pos[rank % NQ == 0]
+        ends = torch.minimum(starts + NQ,
+                             torch.searchsorted(nodes, nodes[starts],
+                                                right=True))
+        rows = torch.stack([starts, ends - starts], dim=1)
+        for kind, keep in enumerate((rows[:, 1] > NARROW,
+                                     rows[:, 1] <= NARROW)):
+            at = 2 + 2 * t_max * kind
+            tiles[kind] = int(keep.sum())
+            tiles[at : at + 2 * tiles[kind]] = rows[keep].reshape(-1)
+    else:
+        code = _build.library().knn_slab_tiles(
+            nodes.data_ptr(), pairs, t_max, tiles.data_ptr(),
+            _build.stream_ptr(nodes.device))
+        _build.check(code, "knn_slab_tiles")
+    return order.to(torch.int32), nodes, tiles
+
+
 def beam_expand(
     sel_ids: torch.Tensor,  # [Q, E] int32 selected node ids in [0, N)
     queries: torch.Tensor,  # [Q, d] (cast to f32)
@@ -138,16 +187,17 @@ def beam_expand(
     q_n, e = sel_ids.shape
     d = packed_vecs.shape[1]
     q = _pad_queries(queries, d)
-    sel = sel_ids.to(torch.int32).contiguous()
     sims = torch.empty((q_n, e, LANE), dtype=torch.float32, device=q.device)
     nbrs = torch.empty((q_n, e, LANE), dtype=torch.int32, device=q.device)
     if q_n == 0 or e == 0:
         return sims, nbrs
+    order, nodes, tiles = slab_plan(sel_ids, n_nodes)
     code = _build.library().knn_slab_expand(
-        sel.data_ptr(), q.data_ptr(), packed_vecs.contiguous().data_ptr(),
+        q.data_ptr(), packed_vecs.contiguous().data_ptr(),
         packed_ids.contiguous().data_ptr(),
-        packed_scales.contiguous().data_ptr(), sims.data_ptr(),
-        nbrs.data_ptr(), q_n, e, d, deg_p, n_nodes,
+        packed_scales.contiguous().data_ptr(), order.data_ptr(),
+        nodes.data_ptr(), tiles.data_ptr(), sims.data_ptr(), nbrs.data_ptr(),
+        q_n, e, d, deg_p, n_nodes, (tiles.numel() - 2) // 4,
         _build.stream_ptr(q.device),
     )
     _build.check(code, "knn_slab_expand")

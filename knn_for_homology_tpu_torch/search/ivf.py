@@ -475,8 +475,8 @@ class IVFIndex:
     # (0 = always; tests force the bf16 gather path with 10**9)
     INT8_UNION_MIN_ROWS = 0
     # probes per kernel K call: its [qb, 32, 128] f32 + int32 outputs are
-    # 128 MiB at qb = 4096 (K itself holds one query per block whatever
-    # the probe count)
+    # 128 MiB at qb = 4096; K's own scratch (the node-major plan of the
+    # qb x 32 pairs) is a few MiB
     MAX_PROBE_PER_CALL = 32
     # blocks at least this big take the union-scan path
     UNION_MIN_Q = 512

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Kernels G (csrc/ffn_fused.cu), D, E, F and J (the tensor-core route of
-csrc/segment_packed.cu), B (csrc/segment_topr.cu, 3xTF32 wgmma), A
-(csrc/flat_topk.cu, FFMA) and C (csrc/sw_grouped.cu) of the PyTorch port
+csrc/segment_packed.cu), B (csrc/segment_topr.cu, 3xTF32 wgmma), K
+(csrc/slab_expand.cu, 2xTF32 wgmma), A (csrc/flat_topk.cu, FFMA) and C
+(csrc/sw_grouped.cu) of the PyTorch port
 on one NVIDIA GPU: what ptxas reports for them, which tensor-core, FFMA and
 DPX instructions their SASS holds (HGMMA: bf16 or, as HGMMA.TF32, tf32
 wgmma; IGMMA: int8 wgmma; C's DPX min/max ops, VIMNMX / VIMNMX3 /
@@ -32,12 +33,12 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import BF16_TOL, PEAK_OPS, cuda_ms  # noqa: E402
 
 UNITS = ("ffn_fused.cu", "segment_packed.cu", "segment_topr.cu",
-         "flat_topk.cu", "sw_grouped.cu")
+         "slab_expand.cu", "flat_topk.cu", "sw_grouped.cu")
 
 
 def ptxas_report():
-    """ptxas -v of G's, D-F/J's, B's, A's and C's units, compiled side by
-    side."""
+    """ptxas -v of G's, D-F/J's, B's, K's, A's and C's units, compiled side
+    by side."""
     from knn_for_homology_tpu_torch.ops import _build
 
     nvcc = _build._nvcc()
@@ -176,6 +177,9 @@ def main():
                    for fn, c in sass.items()), (key, op)
     assert any("segment_topr" in fn and "HGMMA.TF32" in c
                for fn, c in sass.items()), "no tf32 wgmma in kernel B"
+    k_fns = [fn for fn in sass if "slab_expandI" in fn]  # not slab_tiles
+    assert len(k_fns) == 4 and all("HGMMA.TF32" in sass[fn] for fn in k_fns), (
+        "K's four expansion kernels, each with tf32 wgmma")
     assert any("flat_topk_partial" in fn and c.get("FFMA", 0) > 0
                for fn, c in sass.items()), "no FFMA in kernel A"
     dpx = {op: n for fn, c in sass.items() if "sw_wavefront" in fn

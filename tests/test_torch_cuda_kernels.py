@@ -563,16 +563,56 @@ def test_ivf_union_topk_equals_cpu(cuda, compute, k):
     assert bool((got[2][:, 120:] == -1).all())
 
 
-@pytest.mark.parametrize("deg_p,degree,d", [(128, 128, 96), (32, 20, 96),
-                                            (128, 100, 1024)])
-def test_kernel_k_matches_plain(cuda, deg_p, degree, d):
-    # pad lanes ≥ deg_p are -inf; ids equal; sums in another order than
-    # the plain version's: 1e-5 relative
+def _k_sel(case, n_nodes, rng):
+    """[Q, E] node ids of one sharing pattern (kernel K tiles up to
+    slab_cuda.NQ = 64 pairs of one node)."""
+    if case == "random":
+        return rng.randint(0, n_nodes, size=(33, 7))
+    if case == "one_node":  # every query probes one node: 10 tiles
+        return np.full((150, 4), n_nodes // 2)
+    if case == "crowded":  # one node probed by 150 queries: 3 tiles
+        sel = rng.randint(0, n_nodes, size=(150, 5))
+        sel[:, 0] = 7
+        return sel
+    if case == "each_once":  # every node probed once: tiles of one pair
+        return rng.permutation(n_nodes).reshape(10, n_nodes // 10)
+    if case == "repeats":  # a node repeated within a query's selection
+        sel = rng.randint(0, n_nodes, size=(40, 6))
+        sel[:, 2] = sel[:, 0]
+        sel[::3, 5] = sel[::3, 0]
+        return sel
+    if case == "out_of_range":  # ids the kernel clamps to the table
+        sel = rng.randint(0, n_nodes, size=(30, 6))
+        sel[:, 1] = -3
+        sel[::2, 4] = n_nodes
+        sel[1::2, 5] = n_nodes + 100
+        return sel
+    raise ValueError(case)
+
+
+K_SHAPES = [(128, 128, 96), (32, 20, 96), (128, 100, 1024), (32, 32, 1024),
+            (96, 90, 1024)]
+K_CASES = [
+    pytest.param(*shape, case, id="-".join(
+        map(str, shape if case == "random" else (case, *shape))))
+    for case in ("random", "one_node", "crowded", "each_once", "repeats",
+                 "out_of_range")
+    for shape in K_SHAPES
+]
+
+
+@pytest.mark.parametrize("deg_p,degree,d,case", K_CASES)
+def test_kernel_k_matches_plain(cuda, deg_p, degree, d, case):
+    # pad lanes >= deg_p are -inf; ids equal; sums in another order than
+    # the plain version's (two TF32 products): 1e-5 of the largest |sim|.
+    # Sharing from every query on one node (tiles of 64 pairs) to every
+    # node once (n8 tiles of one pair); deg_p 96 leaves rows 96-127 dead,
+    # deg_p 32 rows 32-63
     _, (pv, pi, sc), rng = _slab_table(12, 50, d, min(degree, 20), cuda,
                                        deg_p, degree)
-    sel = torch.from_numpy(rng.randint(0, 50, size=(33, 7)).astype(
-        np.int32)).to(cuda)
-    q = torch.from_numpy(rng.randn(33, d).astype(np.float32)).to(cuda)
+    sel = torch.from_numpy(_k_sel(case, 50, rng).astype(np.int32)).to(cuda)
+    q = torch.from_numpy(rng.randn(sel.shape[0], d).astype(np.float32)).to(
+        cuda)
     before = slab_cuda.beam_expand.launches
     got_s, got_n = slab_cuda.beam_expand(sel, q, pv, pi, sc, deg_p)
     assert slab_cuda.beam_expand.launches == before + 1
@@ -583,6 +623,25 @@ def test_kernel_k_matches_plain(cuda, deg_p, degree, d):
     fin = torch.isfinite(want_s)
     torch.testing.assert_close(got_s[fin], want_s[fin], rtol=1e-5,
                                atol=1e-5 * float(want_s[fin].abs().max()))
+
+
+@pytest.mark.parametrize("case", ["random", "one_node", "crowded",
+                                  "each_once", "repeats", "out_of_range"])
+def test_kernel_k_plan_equals_plain(cuda, case):
+    # the tile kernel claims its slots in no fixed order: compared by start
+    sel = torch.from_numpy(_k_sel(case, 50, np.random.RandomState(3)).astype(
+        np.int32))
+    got = slab_cuda.slab_plan(sel.to(cuda), 50)
+    want = slab_cuda.slab_plan(sel, 50)
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g.cpu(), w)
+
+    def rows(tiles, kind):  # the wide (0) or narrow (1) list
+        n, at = int(tiles[kind]), 2 + (tiles.numel() - 2) // 2 * kind
+        return sorted(map(tuple, tiles[at:at + 2 * n].view(n, 2).tolist()))
+
+    for kind in (0, 1):
+        assert rows(got[2].cpu(), kind) == rows(want[2], kind)
 
 
 @pytest.mark.parametrize("n_q,k,kernel", [(100, 10, "K"), (600, 10, "J"),
