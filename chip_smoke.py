@@ -44,10 +44,11 @@ d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
      full-protein embeddings, one domain (the family) per protein: the IVF
      index (kernel J, the union scan with sym2) and the flat index (kernel
      B), launch counts reset just before; an online batch of 256 queries
-     at k = 10 through the per-probe path (kernel K) against the flat
-     exact top-10; one 4096-query block through the kernels' route and the
-     plain versions' route (ids equal); a write_index / read_index round
-     trip on the card.
+     at k = 10 through the per-probe path (kernel K's tile route) against
+     the flat exact top-10, then on an index of 16384 cells (K's pair
+     route); one 4096-query block and both online batches through the
+     kernels' route and the plain versions' route (ids equal); a
+     write_index / read_index round trip on the card.
 
 Phase 3 holds kernel A (its FFMA product) at 1024 queries, k = 13, and
 kernel B (3xTF32 wgmma products) at 512 queries of the exact k = 1000 plan,
@@ -62,12 +63,17 @@ kernels at full width: G at 7000 tokens x
 1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128 and
 27 x 32 x 256 x 128 (H and I fed the [H, 2L-1] offset-bias table); and the
 IVF path's kernels: J at 1024 queries x 256 cells (32768 rows) x 1024, k =
-1000 (sym and sym2, buffers bit-equal); K (2xTF32 wgmma products) at 32
-probes x 128 x 1024 and three sharing levels of the probed nodes: (a) 4096
-queries uniform over the 2048 cells (~64 pairs a node), (b) 256 queries
-uniform (phase 9's online shape, ~4), (c) 64 queries probing every cell
-once; each beside its two-TF32-product bound (bound_ms) and its fp32
-FFMA bound (bound_fp32_ms), its entry "sharing" holding all three. Library yardsticks, which the port never calls: for G, its two
+1000 (sym and sym2, buffers bit-equal); K at 32 probes x 128 x 1024 and
+four sharing levels of the probed nodes: (a) 4096 queries uniform over the
+2048 cells (~64 pairs a node), (b) 256 queries uniform (phase 9's online
+shape, ~4), (c) 64 queries probing every cell once, (d) 256 queries
+uniform over 16384 cells (~0.5, the online batch of an index 8x phase
+9's); each case on the route K chooses, its launches counted, and on both
+of K's routes (tiles: 2xTF32 wgmma; pairs: a block a query, fp32 FFMA),
+each held to plain; each beside the card's least time (bound_ms: the
+bytes, or the fp32-accurate product at the faster of two TF32 or three
+bf16 products), the tile route's own two-TF32 bound (bound_2xtf32_ms) and
+the fp32 FFMA bound (bound_fp32_ms), K's entry "sharing" holding all four. Library yardsticks, which the port never calls: for G, its two
 products as two bf16 torch.matmul calls (with the relu between them); for
 H and I, scaled_dot_product_attention; for F and J, torch._int_mm on the
 same int8 operands (the product only: no scales, no top-R slots). Each
@@ -153,8 +159,12 @@ ENC_MAX_REL_ERR = 0.2
 # phase 3, kernels J and K at the IVF path's shapes: the phase-9 index's
 # 2048 cells of 64 members (the auto sizing, half full); J scans 256 of
 # them for 1024 queries at k = 1000, K expands 32 probes for 4096 queries
-# (and for 256 and 64, check_ivf_kernels)
+# (and for 256 and 64, and 256 over WIDE_CELLS cells, check_ivf_kernels)
 IVF_CELLS, IVF_FILL = 2048, 64
+# phase 9's second online index, and phase 3's K case (d): 8 rows a cell
+# at 131072 rows, so that 256 queries x 32 probes touch most cells once
+# (kernel K's pair route)
+WIDE_CELLS = 16384
 J_QUERIES, J_BUDGET = 1024, 256
 K_QUERIES, K_PROBES = 4096, 32
 K_RTOL = 1e-5  # K's fp32 sums of 1024 products, in another order than plain
@@ -802,9 +812,9 @@ def check_ivf_kernels(db, q_all, kernels, seed):
     """Phase 3 for kernels J and K on a slab table of the phase-9 layout
     (IVF_CELLS cells of IVF_FILL members of db, packed as the index packs
     them): J's buffers bit-equal to plain (sym and sym2), K's ids and -inf
-    lanes equal and sims within K_RTOL at three sharing levels of the
-    probed nodes (K's entry takes shape (a) and lists all three under
-    "sharing"). No one PyTorch call computes either function (J's
+    lanes equal and sims within K_RTOL at four sharing levels of the
+    probed nodes, on the route K chooses and on each of its two routes
+    (K's entry takes shape (a) and lists all four under "sharing"). No one PyTorch call computes either function (J's
     per-lane packed top-R over an indirect row set; K's gather, dot, scale
     and -inf padding), so neither has a library time."""
     import torch
@@ -864,8 +874,14 @@ def check_ivf_kernels(db, q_all, kernels, seed):
         **j_bound,
     )
 
-    # K at three sharing levels of the pairs' nodes (K reads each probed
-    # slab once per tile of up to 64 pairs of one node)
+    # K at four sharing levels of the pairs' nodes, each on the route K
+    # chooses and on both routes
+    wide = torch.full((WIDE_CELLS, 128), -1, dtype=torch.int32, device=dev)
+    wide[:, :IVF_FILL] = torch.randint(0, db.shape[0], (WIDE_CELLS, IVF_FILL),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32)
+    tables = {IVF_CELLS: (pv, pi, sc),
+              WIDE_CELLS: slab_cuda.pack_neighbours(db, wide, 128)}
     cases = {
         "a": torch.randint(0, IVF_CELLS, (K_QUERIES, K_PROBES), generator=gen,
                            device=dev, dtype=torch.int32),
@@ -873,55 +889,97 @@ def check_ivf_kernels(db, q_all, kernels, seed):
                            generator=gen, device=dev, dtype=torch.int32),
         "c": torch.randperm(IVF_CELLS, generator=gen, device=dev).view(
             IVF_CELLS // K_PROBES, K_PROBES).to(torch.int32),
+        "d": torch.randint(0, WIDE_CELLS, (ONLINE_QUERIES, K_PROBES),
+                           generator=gen, device=dev, dtype=torch.int32),
     }
     k_cases = {}
     for key, sel in cases.items():
         qk = q_all[:sel.shape[0]].contiguous()
-        args = (sel, qk, pv, pi, sc, 128)
-        got_s, got_n = slab_cuda.beam_expand(*args)
+        cells = IVF_CELLS if key != "d" else WIDE_CELLS
+        args = (sel, qk, *tables[cells], 128)
         want_s, want_n = slab_cuda.beam_expand_plain(*args)
-        assert torch.equal(got_n, want_n), f"K {key}: ids differ from plain"
         fin = torch.isfinite(want_s)
-        assert torch.equal(fin, torch.isfinite(got_s)), (
-            f"K {key}: -inf lanes differ")
-        err = float((got_s[fin] - want_s[fin]).abs().max())
         scale = float(want_s[fin].abs().max())
-        assert err <= K_RTOL * scale, (
-            f"K {key}: max_abs_err {err} > {K_RTOL} x {scale}")
-        ms = cuda_ms(lambda: slab_cuda.beam_expand(*args))
+
+        def held(route):
+            """K's max abs error against plain; ids, -inf lanes equal."""
+            got_s, got_n = slab_cuda.beam_expand(*args)
+            assert torch.equal(got_n, want_n), (
+                f"K {key} {route}: ids differ from plain")
+            assert torch.equal(fin, torch.isfinite(got_s)), (
+                f"K {key} {route}: -inf lanes differ")
+            err = float((got_s[fin] - want_s[fin]).abs().max())
+            assert err <= K_RTOL * scale, (
+                f"K {key} {route}: max_abs_err {err} > {K_RTOL} x {scale}")
+            return err
+
+        slab_cuda.beam_expand.launches = 0
+        slab_cuda.beam_expand.routes = dict.fromkeys(slab_cuda.ROUTES, 0)
+        err = held("auto")
+        launches = slab_cuda.beam_expand.launches
+        route = next(r for r, n in slab_cuda.beam_expand.routes.items() if n)
+        per_route = {}
+        for r in slab_cuda.ROUTES:
+            with k_route(r):
+                per_route[r] = dict(max_abs_err=held(r), ms=cuda_ms(
+                    lambda: slab_cuda.beam_expand(*args)))
         plain_ms = cuda_ms(lambda: slab_cuda.beam_expand_plain(*args))
         # bytes: the queries and probe lists, each slab probed (with its
         # ids and scales) once, the outputs once; operations: an fp32 dot
-        # per lane, as two TF32 products (the card's least time for an
-        # fp32-accurate product of int8 rows), beside one fp32 FFMA
-        touched = int(torch.unique(sel).numel())
+        # per lane of int8 rows, at the card's fastest fp32-accurate
+        # product (two TF32 or three bf16 products: int8 values are exact
+        # in both), beside the tile route's own two TF32 products and one
+        # fp32 FFMA
+        touched = int(torch.unique(sel.clamp(0, cells - 1)).numel())
         d = qk.shape[1]
         flops = 2 * sel.numel() * 128 * d
-        nbytes = (tensor_bytes(sel, qk, got_s, got_n)
+        nbytes = (tensor_bytes(sel, qk, want_s, want_n)
                   + touched * 128 * (d + 8))
-        tf32 = bound(2 * flops, "tf32", nbytes)
+        card = min((bound(2 * flops, "tf32", nbytes),
+                    bound(3 * flops, "bf16", nbytes)),
+                   key=lambda b: b["bound_ms"])
         k_cases[key] = dict(
-            queries=sel.shape[0], probes=K_PROBES, nodes=touched,
-            pairs_per_node=sel.numel() / touched, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_fp32_ms=bound(flops, "fp32",
-                                                   nbytes)["bound_ms"],
-            **tf32)
+            queries=sel.shape[0], probes=K_PROBES, cells=cells, nodes=touched,
+            pairs_per_node=sel.numel() / touched, route=route,
+            launches=launches, max_abs_err=err,
+            ms=per_route[route]["ms"], plain_ms=plain_ms, routes=per_route,
+            bound_2xtf32_ms=bound(2 * flops, "tf32", nbytes)["bound_ms"],
+            bound_fp32_ms=bound(flops, "fp32", nbytes)["bound_ms"], **card)
         log(f"phase 3 kernel K slab_expand ({key}) [{sel.shape[0]} x"
-            f" {K_PROBES} probes x 128 x {d}, {touched} nodes,"
-            f" {sel.numel() / touched:.2f} pairs a node]: ids equal,"
-            f" max_abs_err {err:.3g}, {ms:.3f} ms vs plain {plain_ms:.3f} ms,"
-            f" bound {tf32['bound_ms']:.3f} ms ({tf32['bound_by']}, two TF32"
-            f" products; fp32 FFMA {k_cases[key]['bound_fp32_ms']:.3f} ms)")
+            f" {K_PROBES} probes x 128 x {d}, {touched} of {cells} nodes,"
+            f" {sel.numel() / touched:.2f} pairs a node]: route {route}"
+            f" ({launches} launch), ids equal, max_abs_err {err:.3g},"
+            f" {k_cases[key]['ms']:.3f} ms (tiles"
+            f" {per_route['tiles']['ms']:.3f}, pairs"
+            f" {per_route['pairs']['ms']:.3f}) vs plain {plain_ms:.3f} ms,"
+            f" bound {card['bound_ms']:.3f} ms ({card['bound_by']}; two TF32"
+            f" products {k_cases[key]['bound_2xtf32_ms']:.3f}, fp32 FFMA"
+            f" {k_cases[key]['bound_fp32_ms']:.3f} ms)")
     kernels["K"] = dict(
         name="slab_expand", route="cuda",
         source="knn_for_homology_tpu_torch/csrc/slab_expand.cu",
         replaces="knn_for_homology_tpu/ops/graph_pallas.py:139",
-        library_ms=None, library=None, product="2xTF32 wgmma",
+        library_ms=None, library=None,
+        product="tiles: 2xTF32 wgmma; pairs: fp32 FFMA",
         **{k: v for k, v in k_cases["a"].items()
            if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "bound_fp32_ms")},
+                    "bound_2xtf32_ms", "bound_fp32_ms")},
         sharing=k_cases,
     )
+
+
+@contextlib.contextmanager
+def k_route(route):
+    """Kernel K held to one of its routes (ops/slab_cuda.py looks its
+    route up at each call)."""
+    from knn_for_homology_tpu_torch.ops import slab_cuda
+
+    saved = slab_cuda.slab_route
+    slab_cuda.slab_route = lambda *shape: route
+    try:
+        yield
+    finally:
+        slab_cuda.slab_route = saved
 
 
 @contextlib.contextmanager
@@ -976,9 +1034,9 @@ def run_ivf_path(train, test, kernels):
     """Phase 9: the IVF index path at full width, counts from zero. The
     phase-4 vectors are the proteins (one domain each, its family), the
     pipeline searches all of them against all at k = 1000 with the IVF
-    index and the flat index; then the online batch (per-probe path). The
-    kernel-vs-plain block and the round trip run after the counts are
-    read."""
+    index and the flat index; then the online batch (per-probe path) on
+    that index and on one of WIDE_CELLS cells. The kernel-vs-plain checks
+    and the round trip run after the counts are read."""
     import torch
 
     from knn_for_homology_tpu_torch.data.pfam import get_homologous_proteins
@@ -1009,6 +1067,7 @@ def run_ivf_path(train, test, kernels):
         np.save(npy, train)
         for mod, name in counters.values():
             getattr(mod, name).launches = 0
+        slab_cuda.beam_expand.routes = dict.fromkeys(slab_cuda.ROUTES, 0)
         for key in packed_cuda.segment_packed_kernel.launches:
             packed_cuda.segment_packed_kernel.launches[key] = 0
         torch.cuda.synchronize()
@@ -1033,17 +1092,28 @@ def run_ivf_path(train, test, kernels):
     t0 = time.perf_counter()
     _, o_ids = index.search(online, ONLINE_K)
     online_s = time.perf_counter() - t0
+    # the same batch on an index of WIDE_CELLS cells: most probed cells
+    # are probed once (kernel K's pair route)
+    wide = IVFIndex(metric="cosine", nprobe=32, n_clusters=WIDE_CELLS,
+                    device="cuda").add(train)
+    t0 = time.perf_counter()
+    _, w_ids = wide.search(online, ONLINE_K)
+    wide_s = time.perf_counter() - t0
     _, exact_ids = FlatIndex(device="cuda").add(train).search(online, ONLINE_K)
     online_recall = recall_of(o_ids, exact_ids)
     launches = {key: getattr(mod, name).launches
                 for key, (mod, name) in counters.items()}
     launches.update(packed_cuda.segment_packed_kernel.launches)
+    k_routes = dict(slab_cuda.beam_expand.routes)
     for key in ("J", "K", "B", "A"):
         assert launches[key] > 0, f"kernel {key} was not launched by phase 9"
+    for route, n_route in k_routes.items():
+        assert n_route > 0, f"kernel K's {route} route was not launched"
     for key in ("A", "B"):
         kernels[key]["launches_by_phase"]["9"] = launches[key]
     kernels["J"]["launches"], kernels["K"]["launches"] = (launches["J"],
                                                           launches["K"])
+    kernels["K"]["launches_by_route"] = k_routes
 
     for mode, m in metrics.items():
         assert math.isfinite(m["auc1"]) and 0 < m["auc1"] <= 1, (mode, m)
@@ -1059,7 +1129,9 @@ def run_ivf_path(train, test, kernels):
     log(f"phase 9 peak {peak / 2**30:.2f} GiB | online batch: build"
         f" {build_s:.3f} s, {ONLINE_QUERIES} queries at k={ONLINE_K} in"
         f" {online_s * 1e3:.1f} ms (per-probe path), recall {online_recall:.4f}"
-        f" against the flat exact top-{ONLINE_K} | launches {launches}")
+        f" against the flat exact top-{ONLINE_K}; on {WIDE_CELLS} cells in"
+        f" {wide_s * 1e3:.1f} ms, recall {recall_of(w_ids, exact_ids):.4f} |"
+        f" launches {launches}, K by route {k_routes}")
 
     # where the IVF all-vs-all search's time goes: device time by kernel
     # over the whole search, then the pipeline's host steps on its hits
@@ -1109,6 +1181,11 @@ def run_ivf_path(train, test, kernels):
     with plain_ivf_kernels():
         _, want_k = index.search(online, ONLINE_K)
     assert np.array_equal(got_k, want_k), "phase 9: per-probe routes differ"
+    with plain_ivf_kernels():
+        _, want_w = wide.search(online, ONLINE_K)
+    assert np.array_equal(w_ids, want_w), (
+        f"phase 9: per-probe routes differ on {WIDE_CELLS} cells")
+    del wide
 
     # write_index / read_index on the card, an index of ROUNDTRIP_ROWS rows
     small = IVFIndex(metric="cosine", nprobe=32, device="cuda").add(

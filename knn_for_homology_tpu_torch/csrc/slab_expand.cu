@@ -34,10 +34,16 @@
 // Two launches, each over its list of tiles. Tiles of more than NARROW =
 // 16 pairs (where the products set the pace) take the wide one: a
 // warpgroup per 64 slab rows, query buffers of 64 rows, one block an SM.
-// The rest (online search and graph beams, a few pairs a node, where the
-// latency of each chunk's steps sets it) take the narrow one: one
-// warpgroup over both row halves, query buffers of 16 rows, two blocks an
-// SM to overlap the steps.
+// The rest (online search, a few pairs a node, where the latency of each
+// chunk's steps sets it) take the narrow one: one warpgroup over both row
+// halves, query buffers of 16 rows, two blocks an SM to overlap the steps
+// (with every tile in the wide launch, 256 queries x 32 probes on 2048 to
+// 32768 cells took 1.3-1.5x as long on an H100).
+//
+// Where most probed nodes are probed by one pair and there are queries
+// enough to fill the card, a tile of one pair still takes a whole slab's
+// chunk steps in lockstep, and the pair route below (a block a query,
+// slab_expand_pairs) is faster; ops/slab_cuda.py:slab_route chooses.
 //
 // The slab streams through a ring of TMA boxes (deg_p rows x 64 columns,
 // 64-byte swizzle), which thread 0 keeps full across the block's tiles (the
@@ -350,8 +356,8 @@ struct Tile {
 
   // Chunk j (its queries fetched). kRetire: the previous chunk's products
   // run, so wait for them before this chunk's A fragments are made and its
-  // products overwrite part, and before the fetch reuses their query
-  // stage. Made before the wait (into a second register set, or copied in
+  // products overwrite part, and before any thread reuses their query
+  // stages. Made before the wait (into a second register set, or copied in
   // after it), the fragments came out wrong in some runs: ptxas does not
   // keep the A registers of a wgmma in flight from reuse (and an empty asm
   // that "uses" them leaves nothing in the PTX to stop it). The wait is not
@@ -364,14 +370,19 @@ struct Tile {
     cp_async_wait_all_but_one();  // chunk j's; chunk j + 1's may fly
     split(j);
     mbar_wait(smem_u32(&r.full[r.s]), r.phase);
+    // wgmma.wait_group waits for the calling thread's own products only,
+    // and every warp's products read all of a query stage: each thread
+    // retires chunk j - 1 before the barrier, so that no stage is written
+    // after it (the fetch below, the next step's split) while another
+    // warp's products still read it
+    if (kRetire) retire();
     fence_async_shared();  // the split queries are read by wgmma
-    __syncthreads();       // ... of every warpgroup; the box read at the
+    __syncthreads();       // ... of every warp; the box read at the
                            // previous step is free
     if (threadIdx.x == 0) feed.issue(a, r, map);
     __syncwarp();
-    if (kRetire) retire();
     convert();
-    fetch(j + 2);  // into the stage the retired products read
+    fetch(j + 2);  // into the stage chunk j - 1's products read
     wgmma_fence();
     const uint32_t big = smem_u32(qbig + (j % QSTAGES) * QBOX);
     const uint32_t small = smem_u32(qsmall + (j & 1) * QBOX);
@@ -497,7 +508,7 @@ slab_expand(const __grid_constant__ CUtensorMap map,
       else
         run_tile<WG, 2, NR, MH>(a, r, feed, &map, qbig, pair_sm, qrow_sm, c,
                                 nd);
-    } else {
+    } else {  // with no narrow launch (narrow = 0), small tiles run as n32
       if (c <= 32)
         run_tile<WG, 4, NR, MH>(a, r, feed, &map, qbig, pair_sm, qrow_sm, c,
                                 nd);
@@ -510,12 +521,12 @@ slab_expand(const __grid_constant__ CUtensorMap map,
 
 // The tile cut of the plan: one thread per sorted pair. A pair whose rank
 // in its node's run is a multiple of NQ starts a tile of min(NQ, the rest
-// of the run) pairs and claims a slot in the wide list (more than NARROW
+// of the run) pairs and claims a slot in the wide list (more than `narrow`
 // pairs) or the narrow one; slots go in no fixed order, but each tile's
 // pairs are fixed, so the scores do not depend on it. tiles: [wide count,
 // narrow count, wide list (t_max pairs of ints), narrow list].
 __global__ void slab_tiles(const int* __restrict__ nodes, int pairs,
-                           int t_max, int* __restrict__ tiles) {
+                           int t_max, int narrow, int* __restrict__ tiles) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= pairs) return;
   const int node = nodes[i];
@@ -533,9 +544,9 @@ __global__ void slab_tiles(const int* __restrict__ nodes, int pairs,
     if (nodes[mid] <= node) lo = mid + 1;
     else hi = mid;
   }
-  const bool narrow = lo - i <= NARROW;
-  const int t = atomicAdd(tiles + narrow, 1);
-  int* list = tiles + 2 + (narrow ? 2 * t_max : 0);
+  const bool kind = lo - i <= narrow;
+  const int t = atomicAdd(tiles + kind, 1);
+  int* list = tiles + 2 + (kind ? 2 * t_max : 0);
   list[2 * t] = i;
   list[2 * t + 1] = lo - i;
 }
@@ -583,19 +594,111 @@ cudaError_t launch_both(const CUtensorMap& map, Args a, const int* tiles,
   return launch<1, NARROW, WG>(map, a, t_max, stream);
 }
 
+// The pair route: a block per query, which streams each of its E slabs
+// (no plan, no sharing). Where most nodes are probed by one pair and the
+// queries fill the card, this reads the same bytes as the tiles do at a
+// higher rate: a tile of one pair still takes the chunk steps of a whole
+// slab in lockstep, where these blocks keep kPairRows rows a warp in
+// flight. Each warp scores whole slab rows (32 lanes x 16 bytes cover 512
+// contiguous bytes of a row a load), fp32 FFMA, then a shuffle reduction a
+// row. Node ids are clamped to [0, n_nodes).
+constexpr int kPairWarps = 8;
+constexpr int kPairRows = 4;      // slab rows in flight a warp
+constexpr int kPairMaxD = 12288;  // the query's fp32 copy stays under 48 KB
+
+__device__ __forceinline__ int clamp_node(int node, int n_nodes) {
+  return node < 0 ? 0 : node >= n_nodes ? n_nodes - 1 : node;
+}
+
+// sum over the 16 int8 of `v` times q[0..16), in order
+__device__ __forceinline__ float dot16(int4 v, const float* q, float acc) {
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      acc = fmaf((float)(int8_t)(w[i] >> (8 * b)), q[4 * i + b], acc);
+  return acc;
+}
+
+__global__ void __launch_bounds__(kPairWarps * 32)
+slab_expand_pairs(const int* __restrict__ sel, const float* __restrict__ q,
+                  const int8_t* __restrict__ pv, const int* __restrict__ pi,
+                  const float* __restrict__ sc, float* __restrict__ sims,
+                  int* __restrict__ nbrs, int e, int d, int deg_p,
+                  int n_nodes) {
+  extern __shared__ float qs[];  // the query, d floats
+  const int qi = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int c = tid; c < d; c += blockDim.x) qs[c] = q[(size_t)qi * d + c];
+  __syncthreads();
+
+  const int chunks = d / 16;  // 16-byte loads a slab row
+  const int rows = e * deg_p;
+  const int* sel_q = sel + (size_t)qi * e;
+  for (int base = warp * kPairRows; base < rows;
+       base += kPairWarps * kPairRows) {
+    const int4* src[kPairRows];
+    float acc[kPairRows];
+#pragma unroll
+    for (int u = 0; u < kPairRows; ++u) {
+      const int r = min(base + u, rows - 1);
+      const int node = clamp_node(sel_q[r / deg_p], n_nodes);
+      src[u] = reinterpret_cast<const int4*>(
+          pv + ((size_t)node * deg_p + r % deg_p) * d);
+      acc[u] = 0.f;
+    }
+    for (int c = lane; c < chunks; c += 32) {
+      int4 v[kPairRows];
+#pragma unroll
+      for (int u = 0; u < kPairRows; ++u) v[u] = __ldg(src[u] + c);
+#pragma unroll
+      for (int u = 0; u < kPairRows; ++u)
+        acc[u] = dot16(v[u], qs + 16 * c, acc[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kPairRows; ++u)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
+    if (lane == 0) {
+#pragma unroll
+      for (int u = 0; u < kPairRows; ++u) {
+        const int r = base + u;
+        if (r >= rows) break;
+        const int j = r / deg_p, l = r % deg_p;
+        const int node = clamp_node(sel_q[j], n_nodes);
+        sims[((size_t)qi * e + j) * kLane + l] =
+            acc[u] * sc[(size_t)node * kLane + l];
+      }
+    }
+  }
+
+  // ids of every lane, and the -inf padding lanes >= deg_p
+  for (int t = tid; t < e * kLane; t += blockDim.x) {
+    const int j = t / kLane, l = t % kLane;
+    const int node = clamp_node(sel_q[j], n_nodes);
+    const size_t out = ((size_t)qi * e + j) * kLane + l;
+    nbrs[out] = pi[(size_t)node * kLane + l];
+    if (l >= deg_p) sims[out] = -INFINITY * sc[(size_t)node * kLane + l];
+  }
+}
+
 }  // namespace
 
 // The tile cut of kernel K's plan (ops/slab_cuda.py:slab_plan): nodes
 // [pairs] clamped node ids sorted ascending; tiles [2 + 4 t_max] int32
 // scratch (slab_tiles), t_max >= the tile count (the wrapper's bound from
-// shapes).
+// shapes); tiles of at most `narrow` (0 or NARROW) pairs go to the narrow
+// list.
 extern "C" int knn_slab_tiles(const int* nodes, int pairs, int t_max,
-                              int* tiles, cudaStream_t stream) {
-  if (pairs < 1 || t_max < 1) return (int)cudaErrorInvalidValue;
+                              int narrow, int* tiles, cudaStream_t stream) {
+  if (pairs < 1 || t_max < 1 || narrow < 0 || narrow > NARROW)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(tiles, 0, 2 * sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
   slab_tiles<<<(pairs + 255) / 256, 256, 0, stream>>>(nodes, pairs, t_max,
-                                                      tiles);
+                                                      narrow, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -633,4 +736,21 @@ extern "C" int knn_slab_expand(const float* q, const int8_t* pv,
                nbrs, e,  d,  deg_p, (d + KC - 1) / KC};
   return (int)(deg_p > 64 ? launch_both<2>(map, a, tiles, t_max, stream)
                           : launch_both<1>(map, a, tiles, t_max, stream));
+}
+
+// The pair route (slab_expand_pairs): sel [q_n, e] int32 node ids; q, pv,
+// pi, sc, sims, nbrs as knn_slab_expand's. d % 16 == 0, d <= 12288, deg_p
+// <= 128.
+extern "C" int knn_slab_expand_pairs(const int* sel, const float* q,
+                                     const int8_t* pv, const int* pi,
+                                     const float* sc, float* sims, int* nbrs,
+                                     int q_n, int e, int d, int deg_p,
+                                     int n_nodes, cudaStream_t stream) {
+  if (q_n < 1 || e < 1 || d < 16 || d % 16 != 0 || d > kPairMaxD ||
+      deg_p < 1 || deg_p > kLane || n_nodes < 1)
+    return (int)cudaErrorInvalidValue;
+  slab_expand_pairs<<<q_n, kPairWarps * 32, (size_t)d * sizeof(float),
+                      stream>>>(sel, q, pv, pi, sc, sims, nbrs, e, d, deg_p,
+                                n_nodes);
+  return (int)cudaGetLastError();
 }

@@ -57,12 +57,16 @@ SIGNATURES = {
     "knn_ivf_indirect": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
-    # nodes, pairs, t_max, tiles, stream
-    "knn_slab_tiles": [_P, _I, _I, _P, _P],
+    # nodes, pairs, t_max, narrow, tiles, stream
+    "knn_slab_tiles": [_P, _I, _I, _I, _P, _P],
     # q, pv, pi, sc, order, nodes, tiles, sims, nbrs, q_n, e, d, deg_p,
     # n_nodes, t_max, stream
     "knn_slab_expand": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    # sel, q, pv, pi, sc, sims, nbrs, q_n, e, d, deg_p, n_nodes, stream
+    "knn_slab_expand_pairs": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ],
     # q, t, blosum, bound, live, counters, out, g, lq, lt, k, segments,
     # gap_first, gap_ext, stream

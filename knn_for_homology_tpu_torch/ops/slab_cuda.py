@@ -12,8 +12,11 @@ IVF index (search/ivf.py, deg_p = 128).
 
 `beam_expand` scores each query against the slabs of its selected groups:
 kernel K on a CUDA tensor, `beam_expand_plain` on a CPU tensor. Kernel K
-reads each probed slab once per tile of up to NQ (query, probe) pairs of
-one node, from the plan `slab_plan` makes on the device.
+has two routes, chosen from shapes (`slab_route`): the tile route reads
+each probed slab once per tile of up to NQ (query, probe) pairs of one
+node, from the plan `slab_plan` makes on the device; the pair route, a
+block per query, streams each pair's slab, which is faster where most
+nodes are probed once and the queries fill the card.
 """
 
 from typing import Tuple
@@ -27,9 +30,18 @@ LANE = 128
 # (query, probe) pairs of one node a tile of kernel K scores against one
 # read of its slab: the kernel's widest product (wgmma n64); tiles of at
 # most NARROW pairs go to its narrow launch (csrc/slab_expand.cu's NQ and
-# NARROW)
+# NARROW; 0 sends every tile to the wide launch)
 NQ = 64
 NARROW = 16
+# the pair route: at least PAIRS_MIN_Q queries (a block each) and at most
+# PAIRS_MAX_SHARE pairs a node on average (Q·E / N); queries of at most
+# PAIRS_MAX_D columns (its fp32 copy in shared memory). On an H100 the
+# pair route was as fast or faster there, and slower at fewer queries or
+# more sharing (scripts/torch_slab_compare.py --sweep)
+PAIRS_MIN_Q = 256
+PAIRS_MAX_SHARE = 1.0
+PAIRS_MAX_D = 12288
+ROUTES = ("tiles", "pairs")
 
 # queries per step of the plain version: bounds its [chunk, E*deg_p, d]
 # fp32 slab transient to ~1 GiB
@@ -153,10 +165,21 @@ def slab_plan(
             tiles[at : at + 2 * tiles[kind]] = rows[keep].reshape(-1)
     else:
         code = _build.library().knn_slab_tiles(
-            nodes.data_ptr(), pairs, t_max, tiles.data_ptr(),
+            nodes.data_ptr(), pairs, t_max, NARROW, tiles.data_ptr(),
             _build.stream_ptr(nodes.device))
         _build.check(code, "knn_slab_tiles")
     return order.to(torch.int32), nodes, tiles
+
+
+def slab_route(q_n: int, e: int, n_nodes: int, d: int) -> str:
+    """Kernel K's route (one of ROUTES) from shapes alone (no host sync):
+    "pairs" where the queries fill the card and most probed nodes are
+    probed by one pair, else "tiles". beam_expand looks it up at each
+    call, so a test can hold K to one route by replacing it."""
+    if (q_n >= PAIRS_MIN_Q and q_n * e <= PAIRS_MAX_SHARE * n_nodes
+            and d <= PAIRS_MAX_D):
+        return "pairs"
+    return "tiles"
 
 
 def beam_expand(
@@ -191,18 +214,32 @@ def beam_expand(
     nbrs = torch.empty((q_n, e, LANE), dtype=torch.int32, device=q.device)
     if q_n == 0 or e == 0:
         return sims, nbrs
-    order, nodes, tiles = slab_plan(sel_ids, n_nodes)
-    code = _build.library().knn_slab_expand(
-        q.data_ptr(), packed_vecs.contiguous().data_ptr(),
-        packed_ids.contiguous().data_ptr(),
-        packed_scales.contiguous().data_ptr(), order.data_ptr(),
-        nodes.data_ptr(), tiles.data_ptr(), sims.data_ptr(), nbrs.data_ptr(),
-        q_n, e, d, deg_p, n_nodes, (tiles.numel() - 2) // 4,
-        _build.stream_ptr(q.device),
-    )
-    _build.check(code, "knn_slab_expand")
+    route = slab_route(q_n, e, n_nodes, d)
+    tables = (packed_vecs.contiguous().data_ptr(),
+              packed_ids.contiguous().data_ptr(),
+              packed_scales.contiguous().data_ptr())
+    if route == "pairs":
+        sel = sel_ids.to(torch.int32).contiguous()
+        code = _build.library().knn_slab_expand_pairs(
+            sel.data_ptr(), q.data_ptr(), *tables, sims.data_ptr(),
+            nbrs.data_ptr(), q_n, e, d, deg_p, n_nodes,
+            _build.stream_ptr(q.device),
+        )
+        _build.check(code, "knn_slab_expand_pairs")
+    else:
+        order, nodes, tiles = slab_plan(sel_ids, n_nodes)
+        code = _build.library().knn_slab_expand(
+            q.data_ptr(), *tables, order.data_ptr(), nodes.data_ptr(),
+            tiles.data_ptr(), sims.data_ptr(), nbrs.data_ptr(), q_n, e, d,
+            deg_p, n_nodes, (tiles.numel() - 2) // 4,
+            _build.stream_ptr(q.device),
+        )
+        _build.check(code, "knn_slab_expand")
     beam_expand.launches += 1
+    beam_expand.routes[route] += 1
     return sims, nbrs
 
 
 beam_expand.launches = 0
+# launches by route; each call counts once in launches and once here
+beam_expand.routes = dict.fromkeys(ROUTES, 0)

@@ -601,28 +601,57 @@ K_CASES = [
 ]
 
 
+def _check_kernel_k(monkeypatch, device, deg_p, degree, d, case, route,
+                    reps=1):
+    """Kernel K held to `route` on one sharing pattern of a 50-node table,
+    `reps` times on the same inputs: ids and -inf lanes equal to plain,
+    sims within 1e-5 of the largest |sim|; one launch a call."""
+    monkeypatch.setattr(slab_cuda, "slab_route", lambda *shape: route)
+    _, (pv, pi, sc), rng = _slab_table(12, 50, d, min(degree, 20), device,
+                                       deg_p, degree)
+    sel = torch.from_numpy(_k_sel(case, 50, rng).astype(np.int32)).to(device)
+    q = torch.from_numpy(rng.randn(sel.shape[0], d).astype(np.float32)).to(
+        device)
+    want_s, want_n = slab_cuda.beam_expand_plain(sel, q, pv, pi, sc, deg_p)
+    fin = torch.isfinite(want_s)
+    for _ in range(reps):
+        before = slab_cuda.beam_expand.launches
+        on_route = slab_cuda.beam_expand.routes[route]
+        got_s, got_n = slab_cuda.beam_expand(sel, q, pv, pi, sc, deg_p)
+        assert slab_cuda.beam_expand.launches == before + 1
+        assert slab_cuda.beam_expand.routes[route] == on_route + 1
+        assert torch.equal(got_n, want_n)
+        assert torch.equal(torch.isneginf(got_s), torch.isneginf(want_s))
+        assert bool(torch.isneginf(got_s[:, :, deg_p:]).all())
+        torch.testing.assert_close(got_s[fin], want_s[fin], rtol=1e-5,
+                                   atol=1e-5 * float(want_s[fin].abs().max()))
+
+
 @pytest.mark.parametrize("deg_p,degree,d,case", K_CASES)
-def test_kernel_k_matches_plain(cuda, deg_p, degree, d, case):
+def test_kernel_k_matches_plain(monkeypatch, cuda, deg_p, degree, d, case):
     # pad lanes >= deg_p are -inf; ids equal; sums in another order than
     # the plain version's (two TF32 products): 1e-5 of the largest |sim|.
     # Sharing from every query on one node (tiles of 64 pairs) to every
     # node once (n8 tiles of one pair); deg_p 96 leaves rows 96-127 dead,
     # deg_p 32 rows 32-63
-    _, (pv, pi, sc), rng = _slab_table(12, 50, d, min(degree, 20), cuda,
-                                       deg_p, degree)
-    sel = torch.from_numpy(_k_sel(case, 50, rng).astype(np.int32)).to(cuda)
-    q = torch.from_numpy(rng.randn(sel.shape[0], d).astype(np.float32)).to(
-        cuda)
-    before = slab_cuda.beam_expand.launches
-    got_s, got_n = slab_cuda.beam_expand(sel, q, pv, pi, sc, deg_p)
-    assert slab_cuda.beam_expand.launches == before + 1
-    want_s, want_n = slab_cuda.beam_expand_plain(sel, q, pv, pi, sc, deg_p)
-    assert torch.equal(got_n, want_n)
-    assert torch.equal(torch.isneginf(got_s), torch.isneginf(want_s))
-    assert bool(torch.isneginf(got_s[:, :, deg_p:]).all())
-    fin = torch.isfinite(want_s)
-    torch.testing.assert_close(got_s[fin], want_s[fin], rtol=1e-5,
-                               atol=1e-5 * float(want_s[fin].abs().max()))
+    _check_kernel_k(monkeypatch, cuda, deg_p, degree, d, case, "tiles")
+
+
+@pytest.mark.parametrize("deg_p,degree,d,case", K_CASES)
+def test_kernel_k_pair_route_matches_plain(monkeypatch, cuda, deg_p, degree,
+                                           d, case):
+    # the pair route (a block a query, fp32 FFMA) on the same patterns
+    _check_kernel_k(monkeypatch, cuda, deg_p, degree, d, case, "pairs")
+
+
+@pytest.mark.parametrize("d", [96, 1024])
+@pytest.mark.parametrize("case", ["crowded", "out_of_range"])
+def test_kernel_k_repeated_wide_tiles(monkeypatch, cuda, case, d):
+    # deg_p 128, tiles of 22-64 pairs: the wide launch's two warpgroups
+    # share each query stage, so a stage written before the other
+    # warpgroup's products are done shows as wrong rows in some runs;
+    # every one of 50 runs must match
+    _check_kernel_k(monkeypatch, cuda, 128, 128, d, case, "tiles", reps=50)
 
 
 @pytest.mark.parametrize("case", ["random", "one_node", "crowded",

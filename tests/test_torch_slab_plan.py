@@ -140,3 +140,15 @@ def test_scoring_through_the_plan_equals_plain(case, deg_p, degree):
     fin = torch.isfinite(want_s)
     torch.testing.assert_close(got_s[fin], want_s[fin], rtol=K_RTOL,
                                atol=K_RTOL * float(want_s[fin].abs().max()))
+
+
+@pytest.mark.parametrize("q_n,e,n_nodes,d,route", [
+    (4096, 32, 2048, 1024, "tiles"),   # ~64 pairs a node
+    (256, 32, 2048, 1024, "tiles"),    # phase 9's online batch, ~4
+    (64, 32, 2048, 1024, "tiles"),     # each node once, too few queries
+    (256, 32, 16384, 1024, "pairs"),   # ~0.5 pairs a node
+    (1024, 8, 65536, 1024, "pairs"),   # a graph beam step, ~0.125
+    (1024, 8, 65536, 16384, "tiles"),  # the query outgrows shared memory
+])
+def test_route_from_shapes(q_n, e, n_nodes, d, route):
+    assert slab_cuda.slab_route(q_n, e, n_nodes, d) == route
