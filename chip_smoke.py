@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's three paths. The reference's `seqvec_search` benchmark —
+Drives the port's paths. The reference's `seqvec_search` benchmark —
 flat kNN → AUC1/TP → Smith-Waterman rescoring → AUC1/TP — at ProtT5-XL's
 width (d = 1024) on n = 131072 database vectors and 4096 queries, then the
 exact k = 1000 search on the same index; and the headline bench
 (knn_for_homology_tpu_torch/bench.py): flat all-vs-all at n = 131072,
-d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
-→ pooled embeddings → neighbours. Phases:
+d = 1024, k = 1000 in every mode; the ProtT5 encoder path, sequences
+→ pooled embeddings → neighbours; the IVF index path; and the paper
+pipelines (the LSH index CLI, the Pfam20 domain and full-protein
+workloads, CATH20). Phases:
 
   1. environment: a CUDA device is required; prints the card and its limit;
   2. build: compiles the CUDA kernels from knn_for_homology_tpu_torch/
@@ -48,7 +50,20 @@ d = 1024, k = 1000 in every mode; and the ProtT5 encoder path, sequences
      the flat exact top-10, then on an index of 16384 cells (K's pair
      route); one 4096-query block and both online batches through the
      kernels' route and the plain versions' route (ids equal); a
-     write_index / read_index round trip on the card.
+     write_index / read_index round trip on the card;
+ 10. the paper pipelines on phase 4's dataset, launch counts reset just
+     before: (a) the index CLI (search/cli.py) builds the reference's
+     1024-bit LSH index over train.npy, read back on the card, its signs
+     held to an fp64 host sketch of 256 rows; (b) the Pfam20 domain
+     workload (pipelines.pfam_domains.run) on that file, 4096 queries at
+     k = 1000, then the top 13 rescored by Smith-Waterman (kernel C); (c)
+     the LSH card route (torch._int_mm + unique int32 / int64 keys + topk)
+     against its plain route on the card (bit-equal), with the product and
+     three selections timed apart at (b)'s shape; (d) the full-protein
+     pipeline's lsh mode (2048 bits) all-vs-all at k = 1000 over the
+     131072 vectors; (e) CATH20's all-vs-all search (cosine and l2,
+     k = 10, kernel A; 14433 seeded vectors and C/A/T/H labels) and its
+     top-1 evaluation, A held to the plain route.
 
 Phase 3 holds kernel A (its FFMA product) at 1024 queries, k = 13, and
 kernel B (3xTF32 wgmma products) at 512 queries of the exact k = 1000 plan,
@@ -174,6 +189,17 @@ K_RTOL = 1e-5  # K's fp32 sums of 1024 products, in another order than plain
 IVF_AUC1_SLACK = 0.01
 ONLINE_QUERIES, ONLINE_K, ONLINE_RECALL = 256, 10, 0.99
 ROUNDTRIP_ROWS = 16384
+# phase 10: the reference's LSH index (seqvec_search_create_index's default
+# 1024 bits), its sketches held to an fp64 host sketch on FLIP_ROWS rows:
+# a sign may flip only where |x.p| is within the fp32 rounding bound of a
+# DIM-term dot product in any order, DIM * 2^-24 * sum_i |x_i p_i| (phase
+# 4's rows have norms near 320, so that bound is ~0.5, not 1e-4); the LSH
+# kNN on phase 4's families must find them first
+LSH_BITS, FLIP_ROWS, LSH_AUC1_MIN = 1024, 256, 0.99
+# phase 10 (e): CATH20's size (14433 domains, PARITY.md), seeded labels:
+# CATH_SUPERFAMILIES superfamilies at CATH_SIGNAL x unit-noise centroids
+CATH_DOMAINS, CATH_SUPERFAMILIES, CATH_SIGNAL = 14433, 2000, 0.5
+CATH_TOP1_MIN = 0.5
 # phase 9 profile groups: kernel J (the union scan), the sorts and top-k
 # selections (routing, cell ranking, the packed decode)
 IVF_KERNELS = (("J ivf_indirect", ("segment_packed",)),
@@ -1207,6 +1233,241 @@ def run_ivf_path(train, test, kernels):
 
 
 @contextlib.contextmanager
+def timed_calls(owner, name, walls):
+    """Append the wall seconds of every call of owner.name (the card
+    synchronised at its end) to `walls`, for the length of the block."""
+    import torch
+
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield walls
+    finally:
+        setattr(owner, name, fn)
+
+
+def cath_like(seed):
+    """Phase 10 (e): CATH20's size, seeded. CATH_DOMAINS vectors of d = DIM
+    round CATH_SUPERFAMILIES superfamily centroids (scale CATH_SIGNAL, unit
+    noise), and their C / A / T / H labels: H the superfamily, T, A and C
+    coarser groups of it. Returns (embeddings, ids, levels, level array)."""
+    rng = np.random.RandomState(seed)
+    fams = rng.randint(0, CATH_SUPERFAMILIES, CATH_DOMAINS)
+    centroids = rng.randn(CATH_SUPERFAMILIES, DIM).astype(np.float32)
+    emb = (centroids[fams] * CATH_SIGNAL
+           + rng.randn(CATH_DOMAINS, DIM).astype(np.float32))
+    ids = np.asarray([f"d{i:05d}" for i in range(CATH_DOMAINS)])
+    codes = [f"{1 + h % 4}.{h % 40}.{h % 400}.{h}" for h in fams]
+    levels = {i: tuple(c.rsplit(".", k)[0] for k in range(4))
+              for i, c in zip(ids, codes)}
+    return emb, ids, levels, np.asarray([levels[i] for i in ids])
+
+
+def run_paper_pipelines(ds, train, test, kernels, seed):
+    """Phase 10: the paper pipelines on the card, counts from zero. (a) the
+    index CLI builds the reference's 1024-bit LSH index over phase 4's
+    train.npy, read back on the card, its sketches held to an fp64 host
+    sketch; (b) the Pfam20 domain workload on that index file (k = 1000,
+    then kernel C rescores the top 13); (c) the LSH card route against its
+    plain route on the card, and its pieces timed; (d) the full-protein
+    pipeline's lsh mode (2048 bits) all-vs-all; (e) CATH20's search
+    (kernel A) and top-1 evaluation on a seeded set of its size."""
+    import torch
+
+    from knn_for_homology_tpu_torch.ops import align_cuda, flat_cuda, lsh
+    from knn_for_homology_tpu_torch.ops.distance import l2_normalize
+    from knn_for_homology_tpu_torch.ops.topk import stable_topk
+    from knn_for_homology_tpu_torch.pipelines import (
+        cath,
+        pfam_domains,
+        pfam_proteins,
+    )
+    from knn_for_homology_tpu_torch.search import cli
+    from knn_for_homology_tpu_torch.search.flat import FlatIndex
+    from knn_for_homology_tpu_torch.search.io import read_index
+    from knn_for_homology_tpu_torch.search.lsh import LSHIndex
+
+    counters = {"A": flat_cuda.flat_topk_kernel,
+                "C": align_cuda.sw_scores_grouped}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+
+    # (a) the index CLI, then the file read back on the card
+    index_file = ds.parent / "pfam20_lsh.index"
+    t0 = time.perf_counter()
+    cli.create_index_main(["--dir", str(ds), "--index", str(index_file),
+                           "--kind", "lsh", "--param", str(LSH_BITS)])
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = read_index(index_file, device="cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    assert isinstance(index, LSHIndex) and index.ntotal == N_TRAIN
+    assert index.nbits == LSH_BITS and index._signs.is_cuda
+    rows = train[:FLIP_ROWS].astype(np.float64)
+    proj = index.projection.astype(np.float64)
+    exact = rows @ proj
+    slack = DIM * 2.0**-24 * (np.abs(rows) @ np.abs(proj))
+    flips = index._signs[:FLIP_ROWS].cpu().numpy() != np.where(exact >= 0,
+                                                                1, -1)
+    flip_max = float(np.abs(exact[flips]).max()) if flips.any() else 0.0
+    assert (np.abs(exact[flips]) <= slack[flips]).all(), (
+        "phase 10: a sign flipped beyond the fp32 rounding bound")
+    log(f"phase 10 (a) create-index --kind lsh --param {LSH_BITS}:"
+        f" {N_TRAIN} x {DIM} in {build_s:.3f} s (load, sketch, pack,"
+        f" write), {index_file.stat().st_size} bytes, read back on the card"
+        f" in {read_s:.3f} s | sketch vs fp64 host sketch of {FLIP_ROWS}"
+        f" rows: {int(flips.sum())} of {flips.size} signs flip, largest"
+        f" |x.p| among them {flip_max:.3g} (fp32 bound: median"
+        f" {float(np.median(slack)):.3g}); signs within 1e-4 of 0:"
+        f" {int((np.abs(exact) <= 1e-4).sum())}")
+
+    # (b) the Pfam20 domain workload on (a)'s file
+    search_walls, align_walls = [], []
+    t0 = time.perf_counter()
+    with timed_calls(LSHIndex, "search", search_walls), timed_calls(
+        pfam_domains, "align_rescore", align_walls
+    ):
+        summary = pfam_domains.run(ds, hits=BENCH_K, index_path=index_file,
+                                   lsh_bits=LSH_BITS, rescore_hits=HITS,
+                                   figures_dir=None, device="cuda")
+    run_s = time.perf_counter() - t0
+    c_after_b = counters["C"].launches
+    assert len(search_walls) == len(align_walls) == 1
+    assert c_after_b > 0, "phase 10: kernel C was not launched"
+    # a family's 32 members sit ~46 bits from its query, the rest ~512
+    assert summary["knn_auc1"] >= LSH_AUC1_MIN, summary
+    assert math.isfinite(summary["knn_align_auc1"]) and (
+        summary["knn_align_auc1"] > 0.05), summary
+    lsh_s = search_walls[0]
+    log(f"phase 10 (b) pfam_domains.run: {N_TEST} queries at k={BENCH_K} on"
+        f" the {LSH_BITS}-bit index, top {HITS} rescored | knn_auc1"
+        f" {summary['knn_auc1']:.4f}, knn_tp300 {summary['knn_tp300']:.4f},"
+        f" knn_align_auc1 {summary['knn_align_auc1']:.4f} | LSH search"
+        f" {lsh_s:.3f} s ({N_TEST / lsh_s:.0f} queries/s), align"
+        f" {align_walls[0]:.3f} s, run {run_s:.1f} s | C launches"
+        f" {c_after_b} (no mmseqs binary: the MMseqs2 baselines are"
+        f" skipped, {len(summary)} summary keys)")
+
+    # (c) the card route against the plain route on the card, then its
+    # pieces at (b)'s shape: the int8 product alone, and three selections
+    # of the same order over its [Q, N] block (int32 or int64 keys + topk;
+    # a stable sort)
+    db_s = index._signs
+    q_s = index.signs_of(test)
+    key_dtype = lsh.key_dtype(N_TRAIN, LSH_BITS)
+    want = lsh.hamming_topk_plain(db_s, q_s[:FLIP_ROWS], BENCH_K)
+    for dtype in (key_dtype, torch.int64):
+        got = lsh.hamming_topk_int(db_s, q_s[:FLIP_ROWS], BENCH_K, dtype)
+        assert torch.equal(got[1], want[1]) and torch.equal(
+            got[0], want[0]), (f"phase 10: the LSH card route ({dtype} keys)"
+                               " and its plain route differ")
+    route_ms = cuda_ms(lambda: lsh.hamming_topk(db_s, q_s, BENCH_K),
+                       reps=2, windows=3)
+    mm_ms = cuda_ms(lambda: torch._int_mm(q_s, db_s.t()), reps=5, windows=3)
+    ip = torch._int_mm(q_s, db_s.t())
+    id_bits = (N_TRAIN - 1).bit_length()
+
+    def key_select(dtype):
+        key = ip.to(dtype, copy=True)  # ip is reused: int32 keys add a copy
+        key += LSH_BITS
+        key <<= id_bits
+        key |= (1 << id_bits) - 1 - torch.arange(N_TRAIN, device=ip.device,
+                                                 dtype=dtype)
+        return torch.topk(key, BENCH_K, dim=1)
+
+    key_ms = {dt: cuda_ms(lambda: key_select(dt), reps=2, windows=3)
+              for dt in (torch.int32, torch.int64)}
+    sort_ms = cuda_ms(lambda: stable_topk(ip.to(torch.float32), BENCH_K),
+                      reps=1, windows=3)
+    del ip
+    plain_ms = cuda_ms(lambda: lsh.hamming_topk_plain(db_s, q_s, BENCH_K),
+                       reps=1, windows=3)
+    lsh_bound = bound(2 * N_TEST * N_TRAIN * LSH_BITS, "int8",
+                      tensor_bytes(db_s, q_s) + N_TEST * BENCH_K * 8)
+    log(f"phase 10 (c) LSH card route vs plain route on the card,"
+        f" {FLIP_ROWS} queries at k={BENCH_K}: ids and distances bit-equal"
+        f" ({str(key_dtype)[6:]} and int64 keys) | [{N_TEST} x {N_TRAIN} x"
+        f" {LSH_BITS} bits]: route ({str(key_dtype)[6:]} keys)"
+        f" {route_ms:.3f} ms, bound {lsh_bound['bound_ms']:.3f} ms"
+        f" ({lsh_bound['bound_by']}), torch._int_mm alone {mm_ms:.3f} ms;"
+        f" selections of its block: int32 keys (from a copy) + topk"
+        f" {key_ms[torch.int32]:.3f} ms, int64 keys + topk"
+        f" {key_ms[torch.int64]:.3f} ms, stable sort {sort_ms:.3f} ms; plain"
+        f" route {plain_ms:.3f} ms")
+    del index, db_s, q_s, got, want
+    torch.cuda.empty_cache()
+
+    # (d) the full-protein pipeline's lsh mode over the same vectors
+    n = train.shape[0]
+    ids = [f"fam{i // FAMILY_TRAIN}_train{i % FAMILY_TRAIN}" for i in range(n)]
+    p2d = {p: [(f"F{i // FAMILY_TRAIN}", (0, 100))] for i, p in enumerate(ids)}
+    npy = ds.parent / "full_sequences.npy"
+    np.save(npy, train)
+    t0 = time.perf_counter()
+    m = pfam_proteins.run(npy, ids, p2d, index_mode="lsh", k=BENCH_K,
+                          device="cuda")
+    wall = time.perf_counter() - t0
+    assert m["auc1"] >= LSH_AUC1_MIN, m
+    log(f"phase 10 (d) pfam_proteins lsh (2048 bits): {n} proteins"
+        f" all-vs-all, k={BENCH_K} | build {m['build_seconds']:.3f} s,"
+        f" search {m['search_seconds']:.3f} s"
+        f" ({n / m['search_seconds']:.0f} queries/s), run {wall:.1f} s |"
+        f" AUC1 {m['auc1']:.4f}, recall@300 {m['recall@300']:.4f}")
+    npy.unlink()
+
+    # (e) CATH20: cosine and l2 all-vs-all at k = 10 (kernel A), then top-1
+    emb, cath_ids, levels, array = cath_like(seed + 4)
+    cath_dir = ds.parent / "cath"
+    cath_dir.mkdir()
+    np.save(cath_dir / "ProtT5.npy", emb)
+    a_before = counters["A"].launches
+    cath.search_and_save(cath_dir, device="cuda")
+    a_cath = counters["A"].launches - a_before
+    assert a_cath == 2, f"phase 10: kernel A ran {a_cath} times, not 2"
+    evaluation = cath.CathEvaluation(cath_ids, levels, array)
+    out = []
+    for name, metric in (("cosine", "cosine"), ("euclidean", "l2")):
+        hits = np.load(cath_dir / f"hits_{name}.npz")["ProtT5"]
+        scores = np.load(cath_dir / f"scores_{name}.npz")["ProtT5"]
+        assert hits.shape == (CATH_DOMAINS, cath.CATH_HITS)
+        assert not (hits == np.arange(CATH_DOMAINS)[:, None]).any()
+        secs = float((cath_dir / f"ProtT5.{name}-search-time.txt").read_text())
+        raw, norm = evaluation.top1(evaluation.compute_is_correct(hits))
+        assert raw >= CATH_TOP1_MIN, (name, raw)
+        out.append(f"{name} {secs:.3f} s, QrawTop1 {raw:.4f}, QnormTop1"
+                   f" {norm:.4f}")
+        if metric == "cosine":  # kernel A against the plain route
+            p_ids, p_scores = FlatIndex(metric="cosine", backend="plain",
+                                        device="cuda").add(emb).search_self(
+                                            cath.CATH_HITS)
+            dbn = l2_normalize(torch.from_numpy(emb).cuda())
+            as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+            cath_err, cath_swaps = check_topk(
+                "phase 10 CATH cosine", (as_t(scores), as_t(hits)),
+                (as_t(p_scores), as_t(p_ids)), dbn, dbn)
+    launches = {key: fn.launches for key, fn in counters.items()}
+    assert launches["A"] > 0 and launches["C"] > 0
+    kernels["A"]["launches_by_phase"]["10"] = launches["A"]
+    kernels["C"].setdefault("launches_by_phase", {"4": kernels["C"]["launches"]})
+    kernels["C"]["launches_by_phase"]["10"] = launches["C"]
+    log(f"phase 10 (e) CATH20 search_and_save ({CATH_DOMAINS} x {DIM},"
+        f" {CATH_SUPERFAMILIES} seeded superfamilies, k={cath.CATH_HITS}):"
+        f" " + "; ".join(out) + f" | cosine ids vs the plain route:"
+        f" {cath_swaps} near-tie swaps, max_abs_err {cath_err:.3g} |"
+        f" phase 10 launches {launches}")
+
+
+@contextlib.contextmanager
 def plain_kernels():
     """The encoder's kernel wrappers swapped for their plain versions, so
     that the same path runs on the card through them (models/t5.py looks
@@ -1459,206 +1720,208 @@ def main() -> None:
     build_s = _build.timed_build()
     log(f"phase 2 build: {build_s:.1f} s -> {_build.library_path().name}")
 
-    with tempfile.TemporaryDirectory(prefix="knn_smoke_") as tmp:
-        t0 = time.perf_counter()
-        ds = Path(tmp) / "dataset"
-        train, test, train_seqs, test_seqs = write_dataset(ds, args.seed)
-        log(f"data: {N_TRAIN} x {DIM} train, {N_TEST} test, written in"
-            f" {time.perf_counter() - t0:.1f} s")
-        db = l2_normalize(torch.from_numpy(train).to(device)).contiguous()
-        q_all = l2_normalize(torch.from_numpy(test).to(device)).contiguous()
-        kernels = {}
+    # phase 4's dataset stays for phase 10 (the paper pipelines)
+    smoke_dir = tempfile.TemporaryDirectory(prefix="knn_smoke_")
+    tmp = smoke_dir.name
+    t0 = time.perf_counter()
+    ds = Path(tmp) / "dataset"
+    train, test, train_seqs, test_seqs = write_dataset(ds, args.seed)
+    log(f"data: {N_TRAIN} x {DIM} train, {N_TEST} test, written in"
+        f" {time.perf_counter() - t0:.1f} s")
+    db = l2_normalize(torch.from_numpy(train).to(device)).contiguous()
+    q_all = l2_normalize(torch.from_numpy(test).to(device)).contiguous()
+    kernels = {}
 
-        # ---- phase 3: kernels against their plain versions
-        warm_card()
-        check_search_kernels(db, q_all, kernels)
+    # ---- phase 3: kernels against their plain versions
+    warm_card()
+    check_search_kernels(db, q_all, kernels)
 
-        check_packed_kernels(db, q_all[:1024].contiguous(), kernels)
+    check_packed_kernels(db, q_all[:1024].contiguous(), kernels)
 
-        # the card's blocks (iter_card_blocks, as align_hits on the card)
-        # of the main path's own mix: every test query against its family's
-        # first 13 train members, plus one 700-aa query with 300 short hits,
-        # which packs ragged lanes. Picked: the block with the most lanes,
-        # the two with the most real cells (three 256-row strips and more),
-        # and the ragged block; each of the first three holds more lanes
-        # than the persistent grid has warps, so warps take lane after lane
-        rng = np.random.RandomState(args.seed + 1)
-        queries = list(test_seqs)
-        hits = [train_seqs[i * FAMILY_TRAIN : i * FAMILY_TRAIN + HITS]
-                for i in range(N_TEST)]
-        queries.append(max(test_seqs, key=len)[:700])
-        hits.append([s[: rng.randint(20, 80)] for s in train_seqs[:300]])
-        cells = align_ops.plan_align_cells(queries, hits)
-        blocks = list(align_ops.iter_card_blocks(cells))
-        lanes_of = lambda b: b[4] * max(len(ln) for _, ln in b[5])  # noqa: E731
-        classic = [b for b in blocks if b[2] == 1]
-        ragged = [b for b in blocks if b[2] > 1]
-        assert ragged, "the workload must plan a ragged block"
-        widest = max(classic, key=lanes_of)
-        picked = [widest] + sorted(
-            (b for b in classic if b is not widest),
-            key=lambda b: -real_cells(b[5]),
-        )[:2] + [max(ragged, key=lanes_of)]
-        warps = _build.library().knn_sw_grouped_warps
-        c_err, c_ms, c_plain_ms, c_cells, c_bytes = 0.0, 0.0, 0.0, 0, 0
-        outnumbered = 0  # blocks of more lanes than the grid's warps
-        for lq_b, lt_b, s_b, _, g_pad, block in picked:
-            qc, tc = align_ops.lane_codes(block, lq_b, lt_b, g_pad)
-            qd, td = torch.from_numpy(qc).to(device), torch.from_numpy(tc).to(device)
-            lanes, grid = g_pad * tc.shape[1], warps(g_pad, tc.shape[1])
-            outnumbered += lanes > grid
-            for conv in ("mmseqs", "blast"):
-                kw = dict(convention=conv, segments=s_b)
-                k_out = align_cuda.sw_scores_grouped(qd, td, **kw)
-                p_out = align_cuda.sw_scores_grouped_plain(qd, td, **kw)
-                assert torch.equal(k_out, p_out), (
-                    f"C: kernel and plain differ on ({lq_b}, {lt_b}, {s_b})"
-                    f" {conv}: max {float((k_out - p_out).abs().max())}"
-                )
-                assert float(k_out.max()) > 0
-                c_err = max(c_err, float((k_out - p_out).abs().max()))
-            kw = dict(convention="mmseqs", segments=s_b)
-            ms = cuda_ms(lambda: align_cuda.sw_scores_grouped(qd, td, **kw))
-            plain_ms = cuda_ms(  # up to seconds a call: windows of one call
-                lambda: align_cuda.sw_scores_grouped_plain(qd, td, **kw), reps=1
+    # the card's blocks (iter_card_blocks, as align_hits on the card)
+    # of the main path's own mix: every test query against its family's
+    # first 13 train members, plus one 700-aa query with 300 short hits,
+    # which packs ragged lanes. Picked: the block with the most lanes,
+    # the two with the most real cells (three 256-row strips and more),
+    # and the ragged block; each of the first three holds more lanes
+    # than the persistent grid has warps, so warps take lane after lane
+    rng = np.random.RandomState(args.seed + 1)
+    queries = list(test_seqs)
+    hits = [train_seqs[i * FAMILY_TRAIN : i * FAMILY_TRAIN + HITS]
+            for i in range(N_TEST)]
+    queries.append(max(test_seqs, key=len)[:700])
+    hits.append([s[: rng.randint(20, 80)] for s in train_seqs[:300]])
+    cells = align_ops.plan_align_cells(queries, hits)
+    blocks = list(align_ops.iter_card_blocks(cells))
+    lanes_of = lambda b: b[4] * max(len(ln) for _, ln in b[5])  # noqa: E731
+    classic = [b for b in blocks if b[2] == 1]
+    ragged = [b for b in blocks if b[2] > 1]
+    assert ragged, "the workload must plan a ragged block"
+    widest = max(classic, key=lanes_of)
+    picked = [widest] + sorted(
+        (b for b in classic if b is not widest),
+        key=lambda b: -real_cells(b[5]),
+    )[:2] + [max(ragged, key=lanes_of)]
+    warps = _build.library().knn_sw_grouped_warps
+    c_err, c_ms, c_plain_ms, c_cells, c_bytes = 0.0, 0.0, 0.0, 0, 0
+    outnumbered = 0  # blocks of more lanes than the grid's warps
+    for lq_b, lt_b, s_b, _, g_pad, block in picked:
+        qc, tc = align_ops.lane_codes(block, lq_b, lt_b, g_pad)
+        qd, td = torch.from_numpy(qc).to(device), torch.from_numpy(tc).to(device)
+        lanes, grid = g_pad * tc.shape[1], warps(g_pad, tc.shape[1])
+        outnumbered += lanes > grid
+        for conv in ("mmseqs", "blast"):
+            kw = dict(convention=conv, segments=s_b)
+            k_out = align_cuda.sw_scores_grouped(qd, td, **kw)
+            p_out = align_cuda.sw_scores_grouped_plain(qd, td, **kw)
+            assert torch.equal(k_out, p_out), (
+                f"C: kernel and plain differ on ({lq_b}, {lt_b}, {s_b})"
+                f" {conv}: max {float((k_out - p_out).abs().max())}"
             )
-            cells = real_cells(block)
-            c_ms, c_plain_ms = c_ms + ms, c_plain_ms + plain_ms
-            c_cells += cells
-            c_bytes += tensor_bytes(qd, td, k_out)
-            log(f"phase 3 kernel C sw_grouped block G={g_pad} Lq={lq_b}"
-                f" K={tc.shape[1]} Lt={lt_b} S={s_b} ({lanes} lanes, grid of"
-                f" {grid} warps): bit-equal (both conventions),"
-                f" {ms:.3f} ms vs plain {plain_ms:.3f} ms, {cells} real"
-                f" cells, {cells / ms / 1e6:.1f} GCUPS")
-        c_bound = bound(SW_OPS_PER_CELL * c_cells, "int32", c_bytes)
-        kernels["C"] = dict(
-            name="sw_grouped", route="cuda",
-            source="knn_for_homology_tpu_torch/csrc/sw_grouped.cu",
-            replaces="knn_for_homology_tpu/ops/align_pallas.py:179",
-            max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, library_ms=None,
-            library=None, gcups=c_cells / c_ms / 1e6, **c_bound,
+            assert float(k_out.max()) > 0
+            c_err = max(c_err, float((k_out - p_out).abs().max()))
+        kw = dict(convention="mmseqs", segments=s_b)
+        ms = cuda_ms(lambda: align_cuda.sw_scores_grouped(qd, td, **kw))
+        plain_ms = cuda_ms(  # up to seconds a call: windows of one call
+            lambda: align_cuda.sw_scores_grouped_plain(qd, td, **kw), reps=1
         )
-        assert outnumbered >= 3, "C: the blocks must outnumber the grid's warps"
-        log(f"phase 3 kernel C: four card blocks {c_ms:.3f} ms, {c_cells} real"
-            f" cells, {c_cells / c_ms / 1e6:.1f} GCUPS, bound"
-            f" {c_bound['bound_ms']:.3f} ms ({c_bound['bound_by']}), plain"
-            f" {c_plain_ms:.3f} ms")
+        cells = real_cells(block)
+        c_ms, c_plain_ms = c_ms + ms, c_plain_ms + plain_ms
+        c_cells += cells
+        c_bytes += tensor_bytes(qd, td, k_out)
+        log(f"phase 3 kernel C sw_grouped block G={g_pad} Lq={lq_b}"
+            f" K={tc.shape[1]} Lt={lt_b} S={s_b} ({lanes} lanes, grid of"
+            f" {grid} warps): bit-equal (both conventions),"
+            f" {ms:.3f} ms vs plain {plain_ms:.3f} ms, {cells} real"
+            f" cells, {cells / ms / 1e6:.1f} GCUPS")
+    c_bound = bound(SW_OPS_PER_CELL * c_cells, "int32", c_bytes)
+    kernels["C"] = dict(
+        name="sw_grouped", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/sw_grouped.cu",
+        replaces="knn_for_homology_tpu/ops/align_pallas.py:179",
+        max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, library_ms=None,
+        library=None, gcups=c_cells / c_ms / 1e6, **c_bound,
+    )
+    assert outnumbered >= 3, "C: the blocks must outnumber the grid's warps"
+    log(f"phase 3 kernel C: four card blocks {c_ms:.3f} ms, {c_cells} real"
+        f" cells, {c_cells / c_ms / 1e6:.1f} GCUPS, bound"
+        f" {c_bound['bound_ms']:.3f} ms ({c_bound['bound_by']}), plain"
+        f" {c_plain_ms:.3f} ms")
 
-        check_encoder_kernels(kernels, args.seed)
-        check_ivf_kernels(db, q_all, kernels, args.seed)
+    check_encoder_kernels(kernels, args.seed)
+    check_ivf_kernels(db, q_all, kernels, args.seed)
 
-        # ---- phase 4: the main path, counts from zero
-        flat_cuda.flat_topk_kernel.launches = 0
-        exact_cuda.segment_topr_kernel.launches = 0
-        align_cuda.sw_scores_grouped.launches = 0
+    # ---- phase 4: the main path, counts from zero
+    flat_cuda.flat_topk_kernel.launches = 0
+    exact_cuda.segment_topr_kernel.launches = 0
+    align_cuda.sw_scores_grouped.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = benchmark.run(ds, hits=HITS, figures=False, device="cuda")
+    wall = time.perf_counter() - t0
+    phase4 = {"A": flat_cuda.flat_topk_kernel.launches,
+              "B": exact_cuda.segment_topr_kernel.launches}
+    (_, auc_knn, tp_knn, search_s), (_, auc_al, tp_al, total_s) = results[:2]
+    align_s = total_s - search_s
+    for label, vals in [("kNN AUC1", auc_knn), ("kNN+align AUC1", auc_al)]:
+        mean = float(np.mean(vals))
+        # random hit lists score AUC1 ~ 1/N; a working path scores ~13/32
+        assert math.isfinite(mean) and mean > 0.05, f"{label} {mean}"
+    assert len(auc_knn) == len(auc_al) == N_TEST
+    peak = torch.cuda.max_memory_allocated()
+
+    # ---- phase 5: exact k = 1000 on an index of the same vectors
+    index = FlatIndex(device="cuda").add(train)
+    qk = test[:1024]
+    t0 = time.perf_counter()
+    scores, ids = index.search(qk, 1000)
+    k_s = time.perf_counter() - t0
+    launches = {
+        "A": flat_cuda.flat_topk_kernel.launches,
+        "B": exact_cuda.segment_topr_kernel.launches,
+        "C": align_cuda.sw_scores_grouped.launches,
+    }
+    for key, n in launches.items():
+        assert n > 0, f"kernel {key} was not launched on the main path"
+        kernels[key]["launches"] = n
+    for key in ("A", "B"):
+        kernels[key]["launches_by_phase"] = {
+            "4": phase4[key], "5": launches[key] - phase4[key]}
+    assert phase4["A"] > 0 and launches["B"] > phase4["B"], (
+        "A must run in phase 4, B in phase 5")
+
+    # what the main path aligned: every query against its 13 hits
+    _, ids13 = index.search(test, HITS)
+    lens_test = np.asarray([len(s) for s in test_seqs], np.float64)
+    lens_train = np.asarray([len(s) for s in train_seqs], np.float64)
+    pairs = int((ids13 >= 0).sum())
+    cells_n = float((lens_test[:, None] * lens_train[ids13]).sum())
+    log(f"phase 4 main path: kNN AUC1 {np.mean(auc_knn):.4f} TP"
+        f" {np.mean(tp_knn):.4f} | kNN+align AUC1 {np.mean(auc_al):.4f}"
+        f" TP {np.mean(tp_al):.4f} | search {search_s:.3f} s"
+        f" ({N_TEST / search_s:.0f} queries/s) | align {align_s:.3f} s,"
+        f" {pairs} pairs, {cells_n:.4g} DP cells, {cells_n / align_s:.4g}"
+        f" cells/s | run {wall:.1f} s | peak {peak / 2**30:.2f} GiB")
+
+    # phase 4 profile: a second, warm run of the main path under
+    # torch.profiler: C's device time and launches, the H2D copies and
+    # the device's busy share
+    c_before = align_cuda.sw_scores_grouped.launches
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()  # the run, not the trace's processing
+        benchmark.run(ds, hits=HITS, figures=False, device="cuda")
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        results = benchmark.run(ds, hits=HITS, figures=False, device="cuda")
-        wall = time.perf_counter() - t0
-        phase4 = {"A": flat_cuda.flat_topk_kernel.launches,
-                  "B": exact_cuda.segment_topr_kernel.launches}
-        (_, auc_knn, tp_knn, search_s), (_, auc_al, tp_al, total_s) = results[:2]
-        align_s = total_s - search_s
-        for label, vals in [("kNN AUC1", auc_knn), ("kNN+align AUC1", auc_al)]:
-            mean = float(np.mean(vals))
-            # random hit lists score AUC1 ~ 1/N; a working path scores ~13/32
-            assert math.isfinite(mean) and mean > 0.05, f"{label} {mean}"
-        assert len(auc_knn) == len(auc_al) == N_TEST
-        peak = torch.cuda.max_memory_allocated()
+        prof_s = time.perf_counter() - t0
+    c_launches = align_cuda.sw_scores_grouped.launches - c_before
+    shares, top = device_time_shares(prof, MAIN_KERNELS)
+    device_ms = sum(ms for ms, _ in shares.values())
+    c_dev = shares.get("C sw_grouped", (0.0, 0.0))[0]
+    assert c_dev > 0 and c_launches > 0, "phase 4: C did not run"
+    log(f"phase 4 profile of the main path (wall {prof_s * 1e3:.1f} ms"
+        f" under the profiler, device busy {device_ms / (prof_s * 1e3):.3f}):"
+        + ", ".join(f" {g} {ms:.1f} ms ({share:.3f})"
+                    for g, (ms, share) in shares.items())
+        + f" | C: {c_launches} launches, {cells_n / c_dev / 1e6:.1f} GCUPS"
+        f" over {cells_n:.4g} real cells | largest of the rest: "
+        + ", ".join(f"{nm} {ms:.1f} ms" for nm, ms in top))
 
-        # ---- phase 5: exact k = 1000 on an index of the same vectors
-        index = FlatIndex(device="cuda").add(train)
-        qk = test[:1024]
-        t0 = time.perf_counter()
-        scores, ids = index.search(qk, 1000)
-        k_s = time.perf_counter() - t0
-        launches = {
-            "A": flat_cuda.flat_topk_kernel.launches,
-            "B": exact_cuda.segment_topr_kernel.launches,
-            "C": align_cuda.sw_scores_grouped.launches,
-        }
-        for key, n in launches.items():
-            assert n > 0, f"kernel {key} was not launched on the main path"
-            kernels[key]["launches"] = n
-        for key in ("A", "B"):
-            kernels[key]["launches_by_phase"] = {
-                "4": phase4[key], "5": launches[key] - phase4[key]}
-        assert phase4["A"] > 0 and launches["B"] > phase4["B"], (
-            "A must run in phase 4, B in phase 5")
+    plain = FlatIndex(device="cuda", backend="plain").add(train)
+    p_scores, p_ids = plain.search(qk, 1000)
+    qn = l2_normalize(torch.from_numpy(qk).to(device))
+    err, swaps = check_topk(
+        "k=1000",
+        (torch.from_numpy(scores).to(device), torch.from_numpy(ids).to(device)),
+        (torch.from_numpy(p_scores).to(device),
+         torch.from_numpy(p_ids).to(device)),
+        db, qn,
+    )
+    log(f"phase 5 exact k=1000: 1024 queries in {k_s:.3f} s, ids equal to"
+        f" the plain full sort but {swaps} near-tie swaps, max_abs_err"
+        f" {err:.3g} | main-path launches {launches}")
 
-        # what the main path aligned: every query against its 13 hits
-        _, ids13 = index.search(test, HITS)
-        lens_test = np.asarray([len(s) for s in test_seqs], np.float64)
-        lens_train = np.asarray([len(s) for s in train_seqs], np.float64)
-        pairs = int((ids13 >= 0).sum())
-        cells_n = float((lens_test[:, None] * lens_train[ids13]).sum())
-        log(f"phase 4 main path: kNN AUC1 {np.mean(auc_knn):.4f} TP"
-            f" {np.mean(tp_knn):.4f} | kNN+align AUC1 {np.mean(auc_al):.4f}"
-            f" TP {np.mean(tp_al):.4f} | search {search_s:.3f} s"
-            f" ({N_TEST / search_s:.0f} queries/s) | align {align_s:.3f} s,"
-            f" {pairs} pairs, {cells_n:.4g} DP cells, {cells_n / align_s:.4g}"
-            f" cells/s | run {wall:.1f} s | peak {peak / 2**30:.2f} GiB")
-
-        # phase 4 profile: a second, warm run of the main path under
-        # torch.profiler: C's device time and launches, the H2D copies and
-        # the device's busy share
-        c_before = align_cuda.sw_scores_grouped.launches
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()  # the run, not the trace's processing
-            benchmark.run(ds, hits=HITS, figures=False, device="cuda")
-            torch.cuda.synchronize()
-            prof_s = time.perf_counter() - t0
-        c_launches = align_cuda.sw_scores_grouped.launches - c_before
-        shares, top = device_time_shares(prof, MAIN_KERNELS)
-        device_ms = sum(ms for ms, _ in shares.values())
-        c_dev = shares.get("C sw_grouped", (0.0, 0.0))[0]
-        assert c_dev > 0 and c_launches > 0, "phase 4: C did not run"
-        log(f"phase 4 profile of the main path (wall {prof_s * 1e3:.1f} ms"
-            f" under the profiler, device busy {device_ms / (prof_s * 1e3):.3f}):"
-            + ", ".join(f" {g} {ms:.1f} ms ({share:.3f})"
-                        for g, (ms, share) in shares.items())
-            + f" | C: {c_launches} launches, {cells_n / c_dev / 1e6:.1f} GCUPS"
-            f" over {cells_n:.4g} real cells | largest of the rest: "
-            + ", ".join(f"{nm} {ms:.1f} ms" for nm, ms in top))
-
-        plain = FlatIndex(device="cuda", backend="plain").add(train)
-        p_scores, p_ids = plain.search(qk, 1000)
-        qn = l2_normalize(torch.from_numpy(qk).to(device))
-        err, swaps = check_topk(
-            "k=1000",
-            (torch.from_numpy(scores).to(device), torch.from_numpy(ids).to(device)),
-            (torch.from_numpy(p_scores).to(device),
-             torch.from_numpy(p_ids).to(device)),
-            db, qn,
-        )
-        log(f"phase 5 exact k=1000: 1024 queries in {k_s:.3f} s, ids equal to"
-            f" the plain full sort but {swaps} near-tie swaps, max_abs_err"
-            f" {err:.3g} | main-path launches {launches}")
-
-        # the approx and sq8 backends on the same vectors: approx at k = 13
-        # is kernel A's exact search, sq8 at k = 1000 runs kernel F
-        a_before = flat_cuda.flat_topk_kernel.launches
-        f_before = packed_cuda.segment_packed_kernel.launches["F"]
-        _, a_ids = FlatIndex(device="cuda", backend="approx").add(
-            train).search(test, HITS)
-        assert flat_cuda.flat_topk_kernel.launches > a_before
-        kernels["A"]["launches_by_phase"]["5"] += (
-            flat_cuda.flat_topk_kernel.launches - a_before)
-        assert np.array_equal(a_ids, ids13), "approx k=13 differs from exact"
-        _, s_ids = FlatIndex(device="cuda", backend="sq8").add(
-            train).search(qk, 1000)
-        assert packed_cuda.segment_packed_kernel.launches["F"] > f_before
-        s_recall = float(np.mean(
-            [len(set(a) & set(b)) / 1000 for a, b in zip(s_ids, ids)]
-        ))
-        assert s_recall >= 0.9, f"sq8 backend recall {s_recall}"
-        log(f"phase 5 backends: approx k=13 ids equal to exact (kernel A),"
-            f" sq8 k=1000 recall {s_recall:.4f} against exact (kernel F)")
+    # the approx and sq8 backends on the same vectors: approx at k = 13
+    # is kernel A's exact search, sq8 at k = 1000 runs kernel F
+    a_before = flat_cuda.flat_topk_kernel.launches
+    f_before = packed_cuda.segment_packed_kernel.launches["F"]
+    _, a_ids = FlatIndex(device="cuda", backend="approx").add(
+        train).search(test, HITS)
+    assert flat_cuda.flat_topk_kernel.launches > a_before
+    kernels["A"]["launches_by_phase"]["5"] += (
+        flat_cuda.flat_topk_kernel.launches - a_before)
+    assert np.array_equal(a_ids, ids13), "approx k=13 differs from exact"
+    _, s_ids = FlatIndex(device="cuda", backend="sq8").add(
+        train).search(qk, 1000)
+    assert packed_cuda.segment_packed_kernel.launches["F"] > f_before
+    s_recall = float(np.mean(
+        [len(set(a) & set(b)) / 1000 for a, b in zip(s_ids, ids)]
+    ))
+    assert s_recall >= 0.9, f"sq8 backend recall {s_recall}"
+    log(f"phase 5 backends: approx k=13 ids equal to exact (kernel A),"
+        f" sq8 k=1000 recall {s_recall:.4f} against exact (kernel F)")
 
     # ---- phase 6: small input, card vs CPU through the same pipeline
     with tempfile.TemporaryDirectory(prefix="knn_small_") as tmp:
@@ -1683,6 +1946,11 @@ def main() -> None:
     del db, q_all, index, plain
     torch.cuda.empty_cache()
     run_ivf_path(train, test, kernels)
+
+    # ---- phase 10: the paper pipelines, on phase 4's dataset
+    torch.cuda.empty_cache()
+    run_paper_pipelines(ds, train, test, kernels, args.seed)
+    smoke_dir.cleanup()
 
     log(card)
     print(json.dumps({"kernels": [kernels[k] for k in "ABCDEFGHIJK"]}))

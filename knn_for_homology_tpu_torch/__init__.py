@@ -1,6 +1,9 @@
 """PyTorch + CUDA port of knn_for_homology_tpu: the search-and-rescore path,
-the headline bench and the ProtT5 encoder path (sequences → pooled
-embeddings → neighbours).
+the headline bench, the ProtT5 encoder path (sequences → pooled
+embeddings → neighbours), the IVF and LSH indexes with the index CLI, and
+the paper pipelines (Pfam20 domains and full proteins, CATH20, harness,
+slices, reverse control, layer mix) behind `python -m
+knn_for_homology_tpu_torch`.
 
 The JAX package next door stays the reference: every function here is held
 against its JAX counterpart on the same numpy inputs (tests/test_torch_*.py).
@@ -12,9 +15,10 @@ the kernel's plain PyTorch version — callers choose with an explicit
 `device` argument, never by probing for a GPU.
 
 The port imports nothing of the JAX package, not even its numpy-only
-modules: it keeps its own copies of config, data (dataset, fasta), eval
-(metrics, figures), interop (the MMseqs2 formats and drivers) and utils
-(logging, timing), held equal to the originals by
+modules: it keeps its own copies of config, data (dataset, fasta, pfam,
+cath, scop, slices, builders, fixtures), eval (metrics, figures, analysis,
+render, overlap), interop (the MMseqs2 formats and subprocess calls) and utils
+(logging, timing, io, artifacts), held equal to the originals by
 tests/test_torch_shared_copies.py.
 """
 

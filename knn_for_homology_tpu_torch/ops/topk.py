@@ -79,10 +79,12 @@ def streaming_topk(
     metric: str = "cosine",
     db_tile: int = 8192,
     n_valid: int = None,
+    sim_fn=None,  # custom (queries, tile) → bigger-is-better sims override
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k against the whole database, one db tile at a time, merging
     into a carried [Q, k] winner set (the carried set holds lower ids than
-    the tile, so a stable merge keeps the tie order)."""
+    the tile, so a stable merge keeps the tie order). `sim_fn` replaces the
+    metric's similarity (ops/lsh.py plugs in the ±1 sketch product)."""
     n = db.shape[0]
     q_n = queries.shape[0]
     k_eff = min(k, n)
@@ -94,7 +96,11 @@ def streaming_topk(
     )
     for start in range(0, n, db_tile):
         tile = db[start : start + db_tile]
-        sims = similarity_block(queries, tile, metric, q_sq)
+        sims = (
+            sim_fn(queries, tile)
+            if sim_fn is not None
+            else similarity_block(queries, tile, metric, q_sq)
+        )
         col = torch.arange(
             start, start + tile.shape[0], dtype=torch.int32,
             device=queries.device,

@@ -5,13 +5,14 @@ Parity with the reference's full-sequence workload
 (reference: pfam/proteins_search.py + pfam/proteins.py): index build over
 full-sequence embeddings, all-vs-all k=1000 search with lossy-ANN self-hit
 repair, homologous-protein ground truth via the shared-domain closure,
-AUC1 + recall@300, merged rankings. The port builds the flat and the IVF
-index (search/ivf.py, the stand-in for the reference's FAISS-HNSW); the
-LSH and graph indexes are not ported yet (ROADMAP.md). The device is
+AUC1 + recall@300, merged rankings. The port builds the flat, the LSH
+(2048 bits, as the reference's FAISS IndexLSH) and the IVF index
+(search/ivf.py, the stand-in for the reference's FAISS-HNSW); the graph
+index (hnsw) is not ported yet (ROADMAP.md Queue 1 item 3). The device is
 explicit: "cuda" unless the caller asks for the CPU.
 
 Usage: python -m knn_for_homology_tpu_torch.pipelines.pfam_proteins
-       {flat|ivf} [--data DIR] [--npy full_sequences.npy] [--k 1000]
+       {flat|lsh|ivf} [--data DIR] [--npy full_sequences.npy] [--k 1000]
        [--device cuda|cpu]
 """
 
@@ -29,6 +30,7 @@ from ..eval import analysis
 from ..search.flat import FlatIndex
 from ..search.io import read_index, write_index
 from ..search.ivf import IVFIndex
+from ..search.lsh import LSHIndex
 
 logger = logging.getLogger(__name__)
 
@@ -43,15 +45,17 @@ def build_and_search(
     device="cuda",
 ) -> Dict:
     """Index build + all-vs-all search, with persistence + size report
-    (reference: pfam/proteins_search.py:11-57). index_mode: flat | ivf
-    (lsh and graph raise NotImplementedError: not ported yet)."""
+    (reference: pfam/proteins_search.py:11-57). index_mode: flat | lsh |
+    ivf (graph raises NotImplementedError: not ported yet). LSH scores are
+    Hamming distances, ascending (FAISS's convention)."""
     device = resolve_device(device)
     embeddings = np.asarray(embeddings, dtype=np.float32)
     if index_mode not in INDEX_MODES:
         raise ValueError(index_mode)
-    if index_mode in ("lsh", "graph"):
+    if index_mode == "graph":
         raise NotImplementedError(
-            f"index mode {index_mode!r} is not ported yet (see ROADMAP.md)"
+            "index mode 'graph' is not ported yet (see ROADMAP.md Queue 1"
+            " item 3)"
         )
     start = time.time()
     if index_file is not None and Path(index_file).exists():
@@ -60,6 +64,10 @@ def build_and_search(
     else:
         if index_mode == "flat":
             index = FlatIndex(metric="cosine", device=device).add(embeddings)
+        elif index_mode == "lsh":
+            index = LSHIndex(
+                embeddings.shape[1], nbits=2048, device=device
+            ).add(embeddings)
         else:
             index = IVFIndex(metric="cosine", nprobe=32, device=device).add(
                 embeddings
@@ -269,8 +277,8 @@ def main(argv=None):
     parser.add_argument(
         "index_mode", choices=["flat", "lsh", "graph", "hnsw", "ivf"],
         help="'hnsw' is an alias for the graph ANN index; 'ivf' is the"
-        " sub-linear index of int8 cluster slabs (lsh and graph/hnsw are"
-        " not ported yet)",
+        " sub-linear index of int8 cluster slabs (graph/hnsw is not ported"
+        " yet)",
     )
     parser.add_argument("--data", type=Path, default=Path("."))
     parser.add_argument("--npy", default="full_sequences.npy")

@@ -1,7 +1,8 @@
 """Index persistence (port of knn_for_homology_tpu/search/io.py).
 
 Same single-.npz format with a "kind" tag, so a flat index written by
-either package loads in the other. Kinds "flat" and "ivf" are ported.
+either package loads in the other. Kinds "flat", "ivf" and "lsh" are
+ported; "graph" waits for ROADMAP.md Queue 1 item 3.
 """
 
 from pathlib import Path
@@ -22,6 +23,10 @@ def read_index(path: Path, device="cuda"):
     with np.load(path, allow_pickle=False) as data:
         state = {key: data[key] for key in data.files}
     kind = str(state["kind"])
+    if kind == "lsh":
+        from .lsh import LSHIndex
+
+        return LSHIndex.from_state(state, device=device)
     if kind == "flat":
         from .flat import FlatIndex
 
@@ -30,8 +35,9 @@ def read_index(path: Path, device="cuda"):
         from .ivf import IVFIndex
 
         return IVFIndex.from_state(state, device=device)
-    if kind in ("lsh", "graph"):
+    if kind == "graph":
         raise NotImplementedError(
-            f"index kind {kind!r} is not ported yet (see ROADMAP.md)"
+            "index kind 'graph' is not ported yet (see ROADMAP.md Queue 1"
+            " item 3)"
         )
     raise ValueError(f"unknown index kind {kind!r}")

@@ -113,9 +113,9 @@ def test_unported_backends_and_kinds_raise(tmp_path):
         jtopk.flat_topk(train, train[:3], 5, approx=True, storage="pq")
     with pytest.raises(ValueError):
         tflat.FlatIndex(backend="pallas", device="cpu")
-    np.savez(tmp_path / "lsh.npz", kind="lsh")
-    with pytest.raises(NotImplementedError):
-        tio.read_index(tmp_path / "lsh.npz", device="cpu")
+    np.savez(tmp_path / "graph.npz", kind="graph")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tio.read_index(tmp_path / "graph.npz", device="cpu")
     with pytest.raises(ValueError, match="empty"):
         tflat.FlatIndex(device="cpu").search(np.zeros((1, 4), np.float32), 3)
 

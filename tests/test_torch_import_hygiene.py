@@ -44,7 +44,13 @@ def test_port_modules_are_all_listed():
     assert "knn_for_homology_tpu_torch.ops.align_cuda" in MODULES
     for name in ("ops.ivf_cuda", "ops.slab_cuda", "search.ivf",
                  "pipelines.pfam_proteins", "data.pfam", "eval.analysis",
-                 "eval.render", "utils.io"):
+                 "eval.render", "utils.io", "ops.lsh", "search.lsh",
+                 "search.cli", "data.fixtures", "data.cath", "data.scop",
+                 "data.slices", "data.builders", "eval.overlap",
+                 "utils.artifacts", "pipelines.pfam_domains",
+                 "pipelines.cath", "pipelines.harness",
+                 "pipelines.slices_pipeline", "pipelines.reverse",
+                 "pipelines.layer_mix", "__main__"):
         assert f"knn_for_homology_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 15
 

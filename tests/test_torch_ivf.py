@@ -242,16 +242,17 @@ def _proteins(seed=9, n_fam=12, per=24, d=32):
     return emb, ids, p2d
 
 
-@pytest.mark.parametrize("mode", ["flat", "ivf"])
+@pytest.mark.parametrize("mode", ["flat", "ivf", "lsh"])
 def test_build_and_search_matches_jax(mode):
     emb, _, _ = _proteins()
     want = jpp.build_and_search(emb, mode, k=40)
     got = tpp.build_and_search(emb, mode, k=40, device="cpu")
+    # lsh: Hamming distances of equal sketches, bit-equal (test_torch_lsh.py)
     _assert_same((got["scores"], got["hits"]),
-                 (want["scores"], want["hits"]))
+                 (want["scores"], want["hits"]), exact=mode == "lsh")
     assert got["index_bytes"] is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpp.build_and_search(emb, "lsh", device="cpu")
+        tpp.build_and_search(emb, "graph", device="cpu")
     with pytest.raises(ValueError):
         tpp.build_and_search(emb, "pq", device="cpu")
 

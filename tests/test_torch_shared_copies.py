@@ -1,8 +1,10 @@
 """The port's own copies of the JAX package's numpy modules (config, data,
 eval, interop, utils) against the originals: the same inputs must give
 equal outputs, and the MMseqs2 writers byte-equal files. The copies that
-are verbatim (data/pfam.py, eval/analysis.py, eval/render.py,
-utils/io.py) must also stay byte-equal to the originals."""
+are verbatim (data/{pfam,cath,scop,slices,builders}.py,
+eval/{analysis,render,overlap}.py, utils/{io,artifacts}.py) must also stay
+byte-equal to the originals; data/fixtures.py names the port in its usage
+line, so it is held by its output."""
 
 import dataclasses
 from pathlib import Path
@@ -113,7 +115,9 @@ ROOT = Path(__file__).resolve().parent.parent
 
 @pytest.mark.parametrize(
     "module", ["data/pfam.py", "eval/analysis.py", "eval/render.py",
-               "utils/io.py"],
+               "utils/io.py", "data/cath.py", "data/scop.py",
+               "data/slices.py", "data/builders.py", "eval/overlap.py",
+               "utils/artifacts.py"],
 )
 def test_verbatim_copies_byte_equal(module):
     port = ROOT / "knn_for_homology_tpu_torch" / module
@@ -144,3 +148,20 @@ def test_pfam_homologs_and_analysis_equal():
     for a, b in zip(tanalysis.per_query_precision_recall(scores, correct, totals),
                     janalysis.per_query_precision_recall(scores, correct, totals)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["clustered", "random"])
+def test_fixtures_copy_writes_equal_files(tmp_path, kind):
+    from knn_for_homology_tpu.data import fixtures as jfixtures
+    from knn_for_homology_tpu_torch.data import fixtures as tfixtures
+
+    for name, mod in (("jax", jfixtures), ("torch", tfixtures)):
+        mod.main([str(tmp_path / name), "--kind", kind, "--seed", "5"])
+    jfiles, tfiles = _files(tmp_path / "jax"), _files(tmp_path / "torch")
+    assert sorted(tfiles) == sorted(jfiles) and len(jfiles) >= 6
+    for name in jfiles:
+        assert tfiles[name] == jfiles[name], name
+    port = (ROOT / "knn_for_homology_tpu_torch/data/fixtures.py").read_text()
+    orig = (ROOT / "knn_for_homology_tpu/data/fixtures.py").read_text()
+    assert port == orig.replace("python -m knn_for_homology_tpu.",
+                                "python -m knn_for_homology_tpu_torch.")
