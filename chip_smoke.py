@@ -9,9 +9,9 @@ width (d = 1024) on n = 131072 database vectors and 4096 queries, then the
 exact k = 1000 search on the same index; and the headline bench
 (knn_for_homology_tpu_torch/bench.py): flat all-vs-all at n = 131072,
 d = 1024, k = 1000 in every mode; the ProtT5 encoder path, sequences
-→ pooled embeddings → neighbours; the IVF index path; and the paper
-pipelines (the LSH index CLI, the Pfam20 domain and full-protein
-workloads, CATH20). Phases:
+→ pooled embeddings → neighbours; the full-protein path (the graph index,
+its default, and the IVF index); and the paper pipelines (the LSH index
+CLI, the Pfam20 domain and full-protein workloads, CATH20). Phases:
 
   1. environment: a CUDA device is required; prints the card and its limit;
   2. build: compiles the CUDA kernels from knn_for_homology_tpu_torch/
@@ -41,16 +41,20 @@ workloads, CATH20). Phases:
      k = 13 search, launch counts reset just before (G, H, A); an opt-in
      short-attention run (I); device time by kernel over warm batches;
      the kernels' route against the plain versions' on 32 proteins;
-  9. the IVF index path (pipelines.pfam_proteins.run, the full-protein
-     all-vs-all k = 1000 search) over phase 4's 131072 x 1024 vectors as
-     full-protein embeddings, one domain (the family) per protein: the IVF
+  9. the full-protein path (pipelines.pfam_proteins.run, the all-vs-all
+     k = 1000 search) over phase 4's 131072 x 1024 vectors as full-protein
+     embeddings, one domain (the family) per protein, launch counts reset
+     just before each mode: the graph index (the pipeline's default: the
+     exact kNN graph through kernel B, then 62 beam steps a query block,
+     each one call of kernel K; its build steps timed apart), the IVF
      index (kernel J, the union scan with sym2) and the flat index (kernel
-     B), launch counts reset just before; an online batch of 256 queries
-     at k = 10 through the per-probe path (kernel K's tile route) against
-     the flat exact top-10, then on an index of 16384 cells (K's pair
-     route); one 4096-query block and both online batches through the
-     kernels' route and the plain versions' route (ids equal); a
-     write_index / read_index round trip on the card;
+     B); an online batch of 256 queries at k = 10 through the IVF
+     per-probe path (kernel K's tile route) against the flat exact
+     top-10, then on an index of 16384 cells (K's pair route), on the
+     graph index and on a kNN-descent graph; one 4096-query IVF block, a
+     256-query graph block at k = 1000 and the online batches through the
+     kernels' route and the plain versions' route; write_index /
+     read_index round trips of an IVF and a graph index on the card;
  10. the paper pipelines on phase 4's dataset, launch counts reset just
      before: (a) the index CLI (search/cli.py) builds the reference's
      1024-bit LSH index over train.npy, read back on the card, its signs
@@ -83,7 +87,10 @@ four sharing levels of the probed nodes: (a) 4096 queries uniform over the
 2048 cells (~64 pairs a node), (b) 256 queries uniform (phase 9's online
 shape, ~4), (c) 64 queries probing every cell once, (d) 256 queries
 uniform over 16384 cells (~0.5, the online batch of an index 8x phase
-9's); each case on the route K chooses, its launches counted, and on both
+9's), and (g0-g61) the probe lists of steps 0, 20, 40 and 61 of the
+graph index's beam search over one 2048-query block of phase 4's vectors
+at k = 1001 (the pipeline's own traffic; that block is then profiled);
+each case on the route K chooses, its launches counted, and on both
 of K's routes (tiles: 2xTF32 wgmma; pairs: a block a query, fp32 FFMA),
 each held to plain; each beside the card's least time (bound_ms: the
 bytes, or the fp32-accurate product at the faster of two TF32 or three
@@ -189,6 +196,32 @@ K_RTOL = 1e-5  # K's fp32 sums of 1024 products, in another order than plain
 IVF_AUC1_SLACK = 0.01
 ONLINE_QUERIES, ONLINE_K, ONLINE_RECALL = 256, 10, 0.99
 ROUNDTRIP_ROWS = 16384
+# phases 3 and 9: the full-protein pipeline's graph index,
+# GraphIndex(cosine, degree=42, beam_width=256) (pipelines/pfam_proteins.py);
+# at k = 1000 a query block runs iters = 62 beam steps, each one call of
+# kernel K. Phase 3 records K's probe lists at GRAPH_STEPS of the first
+# block of phase 4's vectors (in family order, as the pipeline searches
+# them) and holds K to plain on them, as its other cases
+GRAPH_DEGREE, GRAPH_BEAM = 42, 256
+GRAPH_STEPS = (0, 20, 40, 61)
+# phase 9: a 256-query block at k = 1000 through the kernels' route and
+# the plain versions' (K within K_RTOL of plain can turn a beam at a
+# near-tie): at least this share of the plain route's ids found, and the
+# scores of ids found by both within SCORE_ATOL (both are the fp32
+# rescore of the same rows). The online batch (k = 10) on the exact graph:
+# at least GRAPH_ONLINE_FAMILY of its hits in the query's own family. Its
+# recall of the flat exact top-10 is logged, not bounded: the reference
+# rescores only the beam's first k entries, ranked by the int8 traversal
+# scores, and a family's 32 members lie closer together than that
+# quantisation resolves
+GRAPH_BLOCK_IDS = 0.999
+GRAPH_ONLINE_FAMILY = 0.99
+# phase 3 profile groups of one graph block: kernel K (its two launches
+# and its tile plan), the sorts (the expand pick, the beam rebuild, the
+# duplicate masks, the entry seeding), the gathers and scatters
+GRAPH_KERNELS = (("K slab_expand", ("slab_expand", "slab_tiles")),
+                 ("sort / top-k", ("sort", "radix", "bitonic", "topk")),
+                 ("gather / scatter", ("index", "gather", "scatter")))
 # phase 10: the reference's LSH index (seqvec_search_create_index's default
 # 1024 bits), its sketches held to an fp64 host sketch on FLIP_ROWS rows:
 # a sign may flip only where |x.p| is within the fp32 rounding bound of a
@@ -920,67 +953,9 @@ def check_ivf_kernels(db, q_all, kernels, seed):
     }
     k_cases = {}
     for key, sel in cases.items():
-        qk = q_all[:sel.shape[0]].contiguous()
         cells = IVF_CELLS if key != "d" else WIDE_CELLS
-        args = (sel, qk, *tables[cells], 128)
-        want_s, want_n = slab_cuda.beam_expand_plain(*args)
-        fin = torch.isfinite(want_s)
-        scale = float(want_s[fin].abs().max())
-
-        def held(route):
-            """K's max abs error against plain; ids, -inf lanes equal."""
-            got_s, got_n = slab_cuda.beam_expand(*args)
-            assert torch.equal(got_n, want_n), (
-                f"K {key} {route}: ids differ from plain")
-            assert torch.equal(fin, torch.isfinite(got_s)), (
-                f"K {key} {route}: -inf lanes differ")
-            err = float((got_s[fin] - want_s[fin]).abs().max())
-            assert err <= K_RTOL * scale, (
-                f"K {key} {route}: max_abs_err {err} > {K_RTOL} x {scale}")
-            return err
-
-        slab_cuda.beam_expand.launches = 0
-        slab_cuda.beam_expand.routes = dict.fromkeys(slab_cuda.ROUTES, 0)
-        err = held("auto")
-        launches = slab_cuda.beam_expand.launches
-        route = next(r for r, n in slab_cuda.beam_expand.routes.items() if n)
-        per_route = {}
-        for r in slab_cuda.ROUTES:
-            with k_route(r):
-                per_route[r] = dict(max_abs_err=held(r), ms=cuda_ms(
-                    lambda: slab_cuda.beam_expand(*args)))
-        plain_ms = cuda_ms(lambda: slab_cuda.beam_expand_plain(*args))
-        # bytes: the queries and probe lists, each slab probed (with its
-        # ids and scales) once, the outputs once; operations: an fp32 dot
-        # per lane of int8 rows, at the card's fastest fp32-accurate
-        # product (two TF32 or three bf16 products: int8 values are exact
-        # in both), beside the tile route's own two TF32 products and one
-        # fp32 FFMA
-        touched = int(torch.unique(sel.clamp(0, cells - 1)).numel())
-        d = qk.shape[1]
-        flops = 2 * sel.numel() * 128 * d
-        nbytes = (tensor_bytes(sel, qk, want_s, want_n)
-                  + touched * 128 * (d + 8))
-        card = min((bound(2 * flops, "tf32", nbytes),
-                    bound(3 * flops, "bf16", nbytes)),
-                   key=lambda b: b["bound_ms"])
-        k_cases[key] = dict(
-            queries=sel.shape[0], probes=K_PROBES, cells=cells, nodes=touched,
-            pairs_per_node=sel.numel() / touched, route=route,
-            launches=launches, max_abs_err=err,
-            ms=per_route[route]["ms"], plain_ms=plain_ms, routes=per_route,
-            bound_2xtf32_ms=bound(2 * flops, "tf32", nbytes)["bound_ms"],
-            bound_fp32_ms=bound(flops, "fp32", nbytes)["bound_ms"], **card)
-        log(f"phase 3 kernel K slab_expand ({key}) [{sel.shape[0]} x"
-            f" {K_PROBES} probes x 128 x {d}, {touched} of {cells} nodes,"
-            f" {sel.numel() / touched:.2f} pairs a node]: route {route}"
-            f" ({launches} launch), ids equal, max_abs_err {err:.3g},"
-            f" {k_cases[key]['ms']:.3f} ms (tiles"
-            f" {per_route['tiles']['ms']:.3f}, pairs"
-            f" {per_route['pairs']['ms']:.3f}) vs plain {plain_ms:.3f} ms,"
-            f" bound {card['bound_ms']:.3f} ms ({card['bound_by']}; two TF32"
-            f" products {k_cases[key]['bound_2xtf32_ms']:.3f}, fp32 FFMA"
-            f" {k_cases[key]['bound_fp32_ms']:.3f} ms)")
+        k_cases[key] = check_k_case(
+            key, (sel, q_all[:sel.shape[0]].contiguous(), *tables[cells], 128))
     kernels["K"] = dict(
         name="slab_expand", route="cuda",
         source="knn_for_homology_tpu_torch/csrc/slab_expand.cu",
@@ -992,6 +967,167 @@ def check_ivf_kernels(db, q_all, kernels, seed):
                     "bound_2xtf32_ms", "bound_fp32_ms")},
         sharing=k_cases,
     )
+
+
+def check_graph_kernel_k(train, kernels):
+    """Phase 3 for kernel K at the graph beam step's own traffic: the
+    pipeline's graph index over phase 4's 131072 x 1024 vectors, one
+    query block of them (family order) searched at k = 1001 with K's probe
+    lists recorded at GRAPH_STEPS; each step held to plain on both routes
+    (check_k_case, entries "g<step>" of K's "sharing"). Then the same block
+    under torch.profiler: device time by kernel group, K's share."""
+    import torch
+
+    from knn_for_homology_tpu_torch.search.graph import GraphIndex
+
+    t0 = time.perf_counter()
+    index = GraphIndex(metric="cosine", degree=GRAPH_DEGREE,
+                       beam_width=GRAPH_BEAM, device="cuda").add(train)
+    index._packed_state()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qb = index.query_block(BENCH_K + 1)
+    block = train[:qb]
+    with recorded_k_calls(GRAPH_STEPS) as kept:
+        t0 = time.perf_counter()
+        index.search(block, BENCH_K + 1)
+        block_s = time.perf_counter() - t0
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"phase 3 graph index: {train.shape[0]} x {train.shape[1]} built and"
+        f" packed in {build_s:.2f} s; one block of {len(block)} queries at"
+        f" k={BENCH_K + 1} in {block_s:.3f} s ({kept.calls} K calls) | the"
+        f" card's {card} bytes: packed while the slab table is within"
+        f" {index.PACKED_SHARE * card / 1e9:.2f} GB (this one"
+        f" {index._packed[0].numel() / 1e9:.2f} GB), query blocks of {qb}"
+        f" (rescore gather within {index.RESCORE_SHARE * card / 1e9:.2f} GB)")
+    for step in GRAPH_STEPS:
+        kernels["K"]["sharing"][f"g{step}"] = dict(
+            check_k_case(f"g{step}", kept[step]), step=step)
+    del kept
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        index.search(block, BENCH_K + 1)
+        torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t0
+    shares, top = device_time_shares(prof, GRAPH_KERNELS)
+    device_ms = sum(ms for ms, _ in shares.values())
+    kernels["K"]["graph_block"] = dict(
+        queries=len(block), wall_ms=prof_s * 1e3, device_ms=device_ms,
+        k_share=shares.get("K slab_expand", (0.0, 0.0))[1])
+    log(f"phase 3 profile of one graph block ({len(block)} queries,"
+        f" k={BENCH_K + 1},"
+        f" wall {prof_s * 1e3:.1f} ms under the profiler, device busy"
+        f" {device_ms / (prof_s * 1e3):.3f}): "
+        + ", ".join(f"{g} {ms:.1f} ms ({share:.3f})"
+                    for g, (ms, share) in shares.items())
+        + " | largest of the rest: " + ", ".join(f"{nm} {ms:.1f} ms"
+                                                 for nm, ms in top))
+    del index
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def recorded_k_calls(steps):
+    """The arguments of kernel K's calls numbered `steps` (from 0), as the
+    graph beam search passes them, kept for the length of the block. The
+    search's view of ops/slab_cuda.py becomes a copy whose beam_expand
+    records, then calls the real one (which counts its launches on
+    itself)."""
+    import types
+
+    from knn_for_homology_tpu_torch.ops import slab_cuda
+    from knn_for_homology_tpu_torch.search import graph as graph_mod
+
+    class Kept(dict):
+        calls = 0
+
+    kept = Kept()
+
+    def recorder(*args):
+        if kept.calls in steps:
+            kept[kept.calls] = (args[0].clone(),) + args[1:]
+        kept.calls += 1
+        return slab_cuda.beam_expand(*args)
+
+    view = types.ModuleType(slab_cuda.__name__)
+    view.__dict__.update(vars(slab_cuda), beam_expand=recorder)
+    graph_mod.slab_cuda = view
+    try:
+        yield kept
+    finally:
+        graph_mod.slab_cuda = slab_cuda
+
+def check_k_case(key, args):
+    """Kernel K on one probe list (`args` as beam_expand takes them): on the
+    route K chooses, its launches counted, and on each of its two routes,
+    held to plain (ids and -inf lanes equal, sims within K_RTOL of the
+    largest |sim|), timed beside plain and its bounds. Bytes: the queries
+    and probe lists, each probed slab (with its ids and scales) once, the
+    outputs once; operations: an fp32 dot per real slab row at the card's
+    fastest fp32-accurate product (two TF32 or three bf16 products: int8
+    values are exact in both), beside the tile route's own two TF32
+    products and one fp32 FFMA."""
+    import torch
+
+    from knn_for_homology_tpu_torch.ops import slab_cuda
+
+    sel, qk, pv, pi = args[:4]
+    deg_p, n_nodes, d = args[5], pi.shape[0], qk.shape[1]
+    want_s, want_n = slab_cuda.beam_expand_plain(*args)
+    fin = torch.isfinite(want_s)
+    scale = float(want_s[fin].abs().max())
+
+    def held(route):
+        """K's max abs error against plain; ids, -inf lanes equal."""
+        got_s, got_n = slab_cuda.beam_expand(*args)
+        assert torch.equal(got_n, want_n), (
+            f"K {key} {route}: ids differ from plain")
+        assert torch.equal(fin, torch.isfinite(got_s)), (
+            f"K {key} {route}: -inf lanes differ")
+        err = float((got_s[fin] - want_s[fin]).abs().max())
+        assert err <= K_RTOL * scale, (
+            f"K {key} {route}: max_abs_err {err} > {K_RTOL} x {scale}")
+        return err
+
+    slab_cuda.beam_expand.launches = 0
+    slab_cuda.beam_expand.routes = dict.fromkeys(slab_cuda.ROUTES, 0)
+    err = held("auto")
+    launches = slab_cuda.beam_expand.launches
+    route = next(r for r, n in slab_cuda.beam_expand.routes.items() if n)
+    per_route = {}
+    for r in slab_cuda.ROUTES:
+        with k_route(r):
+            per_route[r] = dict(max_abs_err=held(r), ms=cuda_ms(
+                lambda: slab_cuda.beam_expand(*args)))
+    plain_ms = cuda_ms(lambda: slab_cuda.beam_expand_plain(*args))
+    touched = int(torch.unique(sel.clamp(0, n_nodes - 1)).numel())
+    flops = 2 * sel.numel() * deg_p * d
+    nbytes = (tensor_bytes(sel, qk, want_s, want_n)
+              + touched * (deg_p * d + slab_cuda.LANE * 8))
+    card = min((bound(2 * flops, "tf32", nbytes),
+                bound(3 * flops, "bf16", nbytes)),
+               key=lambda b: b["bound_ms"])
+    case = dict(
+        queries=sel.shape[0], probes=sel.shape[1], cells=n_nodes, deg_p=deg_p,
+        nodes=touched, pairs_per_node=sel.numel() / touched, route=route,
+        launches=launches, max_abs_err=err,
+        ms=per_route[route]["ms"], plain_ms=plain_ms, routes=per_route,
+        bound_2xtf32_ms=bound(2 * flops, "tf32", nbytes)["bound_ms"],
+        bound_fp32_ms=bound(flops, "fp32", nbytes)["bound_ms"], **card)
+    log(f"phase 3 kernel K slab_expand ({key}) [{sel.shape[0]} x"
+        f" {sel.shape[1]} probes x {deg_p} x {d}, {touched} of {n_nodes}"
+        f" nodes, {sel.numel() / touched:.2f} pairs a node]: route {route}"
+        f" ({launches} launch), ids equal, max_abs_err {err:.3g},"
+        f" {case['ms']:.3f} ms (tiles {per_route['tiles']['ms']:.3f}, pairs"
+        f" {per_route['pairs']['ms']:.3f}) vs plain {plain_ms:.3f} ms,"
+        f" bound {card['bound_ms']:.3f} ms ({card['bound_by']}; two TF32"
+        f" products {case['bound_2xtf32_ms']:.3f}, fp32 FFMA"
+        f" {case['bound_fp32_ms']:.3f} ms)")
+    return case
 
 
 @contextlib.contextmanager
@@ -1057,12 +1193,14 @@ def recall_of(got, want):
 
 
 def run_ivf_path(train, test, kernels):
-    """Phase 9: the IVF index path at full width, counts from zero. The
-    phase-4 vectors are the proteins (one domain each, its family), the
-    pipeline searches all of them against all at k = 1000 with the IVF
-    index and the flat index; then the online batch (per-probe path) on
-    that index and on one of WIDE_CELLS cells. The kernel-vs-plain checks
-    and the round trip run after the counts are read."""
+    """Phase 9: the full-protein path at full width, counts from zero
+    before each run. The phase-4 vectors are the proteins (one domain
+    each, its family), the pipeline searches all of them against all at
+    k = 1000 with the graph index (its default: kernels B and K), the IVF
+    index and the flat index; then the online batch on that IVF index (the
+    per-probe path), on one of WIDE_CELLS cells, on the graph index and on
+    a kNN-descent graph. The kernel-vs-plain checks and the round trips run
+    after the counts are read."""
     import torch
 
     from knn_for_homology_tpu_torch.data.pfam import get_homologous_proteins
@@ -1075,7 +1213,9 @@ def run_ivf_path(train, test, kernels):
         slab_cuda,
     )
     from knn_for_homology_tpu_torch.pipelines import pfam_proteins
+    from knn_for_homology_tpu_torch.search import graph as graph_mod
     from knn_for_homology_tpu_torch.search.flat import FlatIndex
+    from knn_for_homology_tpu_torch.search.graph import GraphIndex
     from knn_for_homology_tpu_torch.search.io import read_index, write_index
     from knn_for_homology_tpu_torch.search.ivf import IVFIndex
 
@@ -1088,9 +1228,14 @@ def run_ivf_path(train, test, kernels):
         "A": (flat_cuda, "flat_topk_kernel"),
         "B": (exact_cuda, "segment_topr_kernel"),
     }
-    with tempfile.TemporaryDirectory(prefix="knn_ivf_") as tmp:
-        npy = Path(tmp) / "full_sequences.npy"
-        np.save(npy, train)
+    # the graph build's three steps: the exact kNN (kernel B), the
+    # assembly (self column, long-range edges), the int8 slab pack (done
+    # at the first search, so inside the pipeline's search seconds)
+    graph_steps = {"kNN (B)": (graph_mod, "flat_topk"),
+                   "assembly": (graph_mod, "_assemble_graph"),
+                   "pack": (slab_cuda, "pack_neighbours")}
+
+    def reset_counts():
         for mod, name in counters.values():
             getattr(mod, name).launches = 0
         slab_cuda.beam_expand.routes = dict.fromkeys(slab_cuda.ROUTES, 0)
@@ -1098,17 +1243,36 @@ def run_ivf_path(train, test, kernels):
             packed_cuda.segment_packed_kernel.launches[key] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        metrics, walls = {}, {}
+
+    def read_counts():
+        out = {key: getattr(mod, name).launches
+               for key, (mod, name) in counters.items()}
+        out.update(packed_cuda.segment_packed_kernel.launches)
+        out["K by route"] = dict(slab_cuda.beam_expand.routes)
+        return out
+
+    metrics, walls, peaks, by_mode, step_s = {}, {}, {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="knn_ivf_") as tmp:
+        npy = Path(tmp) / "full_sequences.npy"
+        np.save(npy, train)
         with ivf_budgets() as budgets:
-            for mode in ("ivf", "flat"):
-                t0 = time.perf_counter()
-                metrics[mode] = pfam_proteins.run(npy, ids, p2d,
-                                                  index_mode=mode, k=BENCH_K,
-                                                  device="cuda")
-                walls[mode] = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
+            for mode in ("graph", "ivf", "flat"):
+                reset_counts()
+                with contextlib.ExitStack() as stack:
+                    if mode == "graph":
+                        step_s = {step: stack.enter_context(
+                            timed_calls(owner, name, []))
+                            for step, (owner, name) in graph_steps.items()}
+                    t0 = time.perf_counter()
+                    metrics[mode] = pfam_proteins.run(
+                        npy, ids, p2d, index_mode=mode, k=BENCH_K,
+                        device="cuda")
+                    walls[mode] = time.perf_counter() - t0
+                peaks[mode] = torch.cuda.max_memory_allocated()
+                by_mode[mode] = read_counts()
 
     # the online batch: below UNION_MIN_Q, the per-probe path
+    reset_counts()
     t0 = time.perf_counter()
     index = IVFIndex(metric="cosine", nprobe=32, device="cuda").add(train)
     torch.cuda.synchronize()
@@ -1125,14 +1289,34 @@ def run_ivf_path(train, test, kernels):
     t0 = time.perf_counter()
     _, w_ids = wide.search(online, ONLINE_K)
     wide_s = time.perf_counter() - t0
+    # the same batch on the pipeline's graph index, and on a kNN-descent
+    # graph of the same vectors (its build for indexes above
+    # EXACT_BUILD_MAX rows)
+    graphs = {}
+    for build in ("exact", "nn-descent"):
+        t0 = time.perf_counter()
+        g = GraphIndex(metric="cosine", degree=GRAPH_DEGREE,
+                       beam_width=GRAPH_BEAM, build=build,
+                       device="cuda").add(train)
+        g._packed_state()
+        torch.cuda.synchronize()
+        g_build = time.perf_counter() - t0
+        g.search(online, ONLINE_K)  # the first block's sizes, warm
+        t0 = time.perf_counter()
+        _, g_ids = g.search(online, ONLINE_K)
+        graphs[build] = (g, g_build, time.perf_counter() - t0, g_ids)
     _, exact_ids = FlatIndex(device="cuda").add(train).search(online, ONLINE_K)
+    by_mode["online"] = read_counts()
     online_recall = recall_of(o_ids, exact_ids)
-    launches = {key: getattr(mod, name).launches
-                for key, (mod, name) in counters.items()}
-    launches.update(packed_cuda.segment_packed_kernel.launches)
-    k_routes = dict(slab_cuda.beam_expand.routes)
+    launches = {key: sum(c[key] for c in by_mode.values())
+                for key in counters}
+    k_routes = {r: sum(c["K by route"][r] for c in by_mode.values())
+                for r in slab_cuda.ROUTES}
     for key in ("J", "K", "B", "A"):
         assert launches[key] > 0, f"kernel {key} was not launched by phase 9"
+    for key in ("K", "B"):
+        assert by_mode["graph"][key] > 0, (
+            f"kernel {key} was not launched by the graph mode")
     for route, n_route in k_routes.items():
         assert n_route > 0, f"kernel K's {route} route was not launched"
     for key in ("A", "B"):
@@ -1140,6 +1324,11 @@ def run_ivf_path(train, test, kernels):
     kernels["J"]["launches"], kernels["K"]["launches"] = (launches["J"],
                                                           launches["K"])
     kernels["K"]["launches_by_route"] = k_routes
+    for key in ("K", "B"):
+        kernels[key]["launches_by_mode"] = {
+            m: c[key] for m, c in by_mode.items()}
+    kernels["K"]["routes_by_mode"] = {m: c["K by route"]
+                                      for m, c in by_mode.items()}
 
     for mode, m in metrics.items():
         assert math.isfinite(m["auc1"]) and 0 < m["auc1"] <= 1, (mode, m)
@@ -1147,17 +1336,34 @@ def run_ivf_path(train, test, kernels):
             f" k={BENCH_K} | build {m['build_seconds']:.3f} s, search"
             f" {m['search_seconds']:.3f} s ({n / m['search_seconds']:.0f}"
             f" queries/s), run {walls[mode]:.1f} s | AUC1 {m['auc1']:.4f},"
-            f" recall@300 {m['recall@300']:.4f}")
-    assert metrics["ivf"]["auc1"] >= metrics["flat"]["auc1"] - IVF_AUC1_SLACK, (
-        metrics["ivf"]["auc1"], metrics["flat"]["auc1"])
-    assert online_recall >= ONLINE_RECALL, f"online recall {online_recall}"
+            f" recall@300 {m['recall@300']:.4f} | peak"
+            f" {peaks[mode] / 2**30:.2f} GiB | launches {by_mode[mode]}")
+    log("phase 9 graph build steps (s, the card synchronised after each): "
+        + ", ".join(f"{step} {sum(w):.3f}" for step, w in step_s.items())
+        + " (the pack runs at the first search)")
+    for mode in ("graph", "ivf"):
+        assert metrics[mode]["auc1"] >= (
+            metrics["flat"]["auc1"] - IVF_AUC1_SLACK), (
+            mode, metrics[mode]["auc1"], metrics["flat"]["auc1"])
+    g_recall = {b: recall_of(v[3], exact_ids) for b, v in graphs.items()}
+    own = np.arange(ONLINE_QUERIES)[:, None]  # test query i is family i
+    g_family = {b: float(np.mean(v[3] // FAMILY_TRAIN == own))
+                for b, v in graphs.items()}
     log("phase 9 IVF union scan: " + "; ".join(budgets))
-    log(f"phase 9 peak {peak / 2**30:.2f} GiB | online batch: build"
-        f" {build_s:.3f} s, {ONLINE_QUERIES} queries at k={ONLINE_K} in"
-        f" {online_s * 1e3:.1f} ms (per-probe path), recall {online_recall:.4f}"
-        f" against the flat exact top-{ONLINE_K}; on {WIDE_CELLS} cells in"
-        f" {wide_s * 1e3:.1f} ms, recall {recall_of(w_ids, exact_ids):.4f} |"
-        f" launches {launches}, K by route {k_routes}")
+    log(f"phase 9 online batch: IVF build {build_s:.3f} s, {ONLINE_QUERIES}"
+        f" queries at k={ONLINE_K} in {online_s * 1e3:.1f} ms (per-probe"
+        f" path), recall {online_recall:.4f} against the flat exact"
+        f" top-{ONLINE_K}; on {WIDE_CELLS} cells in {wide_s * 1e3:.1f} ms,"
+        f" recall {recall_of(w_ids, exact_ids):.4f}; "
+        + "; ".join(f"graph ({b}) build + pack {v[1]:.3f} s, the batch in"
+                    f" {v[2] * 1e3:.1f} ms, recall {g_recall[b]:.4f}, own"
+                    f" family {g_family[b]:.4f}"
+                    for b, v in graphs.items())
+        + f" | launches {by_mode['online']}")
+    assert online_recall >= ONLINE_RECALL, f"online recall {online_recall}"
+    assert g_family["exact"] >= GRAPH_ONLINE_FAMILY, g_family
+    gindex = graphs.pop("exact")[0]
+    del graphs
 
     # where the IVF all-vs-all search's time goes: device time by kernel
     # over the whole search, then the pipeline's host steps on its hits
@@ -1230,6 +1436,44 @@ def run_ivf_path(train, test, kernels):
         f" k={BENCH_K} (union scan) and the online batch (per-probe) give"
         f" equal ids and scores | round trip of a {ROUNDTRIP_ROWS}-row index"
         f" in {io_s:.2f} s: same ids")
+
+    # the graph index: a block of ONLINE_QUERIES at k = 1000 through kernel
+    # K and through its plain version (GRAPH_BLOCK_IDS, SCORE_ATOL)
+    block = train[:ONLINE_QUERIES]
+    got = gindex.search(block, BENCH_K)
+    with plain_ivf_kernels():
+        want = gindex.search(block, BENCH_K)
+    found, worst = [], 0.0
+    for gs, gi, ws, wi in zip(*got, *want):
+        common, at_g, at_w = np.intersect1d(gi, wi, return_indices=True)
+        found.append(common.size / wi.size)
+        worst = max(worst, float(np.abs(gs[at_g] - ws[at_w]).max()))
+    same_place = float(np.mean(got[1] == want[1]))
+    assert np.mean(found) >= GRAPH_BLOCK_IDS, (
+        f"phase 9: the graph's kernel route finds {np.mean(found):.5f} of the"
+        " plain route's ids")
+    assert worst <= SCORE_ATOL, f"phase 9: graph scores differ by {worst}"
+    kernels["K"]["graph_vs_plain"] = dict(
+        queries=ONLINE_QUERIES, k=BENCH_K, ids_found=float(np.mean(found)),
+        same_place=same_place, max_score_diff=worst)
+    small = GraphIndex(metric="cosine", degree=GRAPH_DEGREE,
+                       beam_width=GRAPH_BEAM, device="cuda").add(
+        train[:ROUNDTRIP_ROWS])
+    before = small.search(online, ONLINE_K)
+    with tempfile.TemporaryDirectory(prefix="knn_graph_io_") as tmp:
+        t0 = time.perf_counter()
+        write_index(small, Path(tmp) / "graph.index")
+        loaded = read_index(Path(tmp) / "graph.index", device="cuda")
+        io_s = time.perf_counter() - t0
+    after = loaded.search(online, ONLINE_K)
+    assert isinstance(loaded, GraphIndex)
+    assert np.array_equal(before[1], after[1]) and np.array_equal(
+        before[0], after[0]), "phase 9: the graph round trip changed results"
+    log(f"phase 9 graph kernels vs plain: a {ONLINE_QUERIES}-query block at"
+        f" k={BENCH_K}: the kernel route finds {np.mean(found):.5f} of the"
+        f" plain route's ids ({same_place:.5f} at the same place), scores"
+        f" of common ids within {worst:.3g} | round trip of a"
+        f" {ROUNDTRIP_ROWS}-row graph index in {io_s:.2f} s: same ids")
 
 
 @contextlib.contextmanager
@@ -1810,6 +2054,7 @@ def main() -> None:
 
     check_encoder_kernels(kernels, args.seed)
     check_ivf_kernels(db, q_all, kernels, args.seed)
+    check_graph_kernel_k(train, kernels)
 
     # ---- phase 4: the main path, counts from zero
     flat_cuda.flat_topk_kernel.launches = 0

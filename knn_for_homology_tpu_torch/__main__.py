@@ -2,25 +2,24 @@
 (port of knn_for_homology_tpu/__main__.py, the same command names).
 
 Mirrors the reference's `python -m <module>` entry points (Readme.md:29-43)
-under one roof. The search and embedding commands take `--device`
-(cuda unless asked for cpu). `reproduce` needs `embed-all` and the other
-encoders, which are not ported yet (ROADMAP.md Queue 1 item 4).
+under one roof. The search, embedding and reproduction commands take
+`--device` (cuda unless asked for cpu).
 """
 
 import sys
 
 COMMANDS = {
     "benchmark": ("pipelines.benchmark", "end-to-end kNN/hybrid benchmark on a dataset dir"),
-    "embed": ("pipelines.embed", "embedding commands (embed / embed-one)"),
-    "create-index": ("search.cli", "build + persist an LSH or IVF index over train.npy"),
-    "proteins-search": ("pipelines.pfam_proteins", "flat|lsh|ivf full-sequence index build + search"),
+    "embed": ("pipelines.embed", "embedding drivers (embed / embed-one / embed-all / embed-domains)"),
+    "create-index": ("search.cli", "build + persist an LSH, graph or IVF index over train.npy"),
+    "proteins-search": ("pipelines.pfam_proteins", "flat|lsh|graph|ivf full-sequence index build + search"),
     "cath-search": ("pipelines.cath", "all-vs-all search over every embedding npy"),
     "make-slices": ("data.slices", "slice long proteins into overlapping windows"),
     "pfam-full-sequences": ("data.pfam", "extract full sequences from pfamseq"),
     "build-dataset": ("data.builders", "seeded Pfam subset / family-count subset builders"),
     "make-fixtures": ("data.fixtures", "deterministic test-dataset generators"),
     "reverse-control": ("pipelines.reverse", "forward/reversed/shuffled embedding control"),
-    "reproduce": (None, "one-command paper reproduction (not ported yet)"),
+    "reproduce": ("pipelines.reproduce", "one-command paper reproduction (cath / pfam-proteins / uniref90)"),
 }
 
 
@@ -36,11 +35,6 @@ def main(argv=None) -> None:
         print(f"unknown command {command!r}; run with --help for the list")
         raise SystemExit(2)
     module_name, _ = COMMANDS[command]
-    if module_name is None:
-        raise NotImplementedError(
-            f"{command!r} is not ported yet: it needs embed-all and the other"
-            " encoders (see ROADMAP.md Queue 1 item 4)"
-        )
     import importlib
 
     module = importlib.import_module(f"knn_for_homology_tpu_torch.{module_name}")

@@ -8,7 +8,9 @@ Uniform interface, as in the reference's embedder-by-name registry
   embed_pooled(sequences)      → [N, d] mean-pooled vectors
   reduce_per_protein(emb)      → mean over residues
 
-The other ten encoders of the JAX package are not ported yet (ROADMAP).
+The JAX package's other nine registry keys (SeqVec, ESM, ESM1b, ProtBert
+BFD, ProtAlbert BFD, UniRep, ProtXLNet UniRef100, CPCProt, PLUS; six model
+files) are not ported yet (ROADMAP).
 """
 
 from pathlib import Path
@@ -165,9 +167,12 @@ class AACompositionEmbedder(EmbedderBase):
             yield np.stack([eye[table.get(aa, fallback)] for aa in seq.upper()])
 
 
-# name → constructor (reference: cath/embed.py:34-46, cath/embed_all.py:23-44)
+# name → constructor (reference: cath/embed.py:34-46, cath/embed_all.py:23-44);
+# the ProtT5 variants share one architecture (other checkpoints)
 EMBEDDERS = {
     "ProtT5 XL U50": ProtT5Embedder,
+    "ProtT5-BFD": ProtT5Embedder,
+    "ProtT5 UniRef50": ProtT5Embedder,
     "AA Composition": AACompositionEmbedder,
 }
 

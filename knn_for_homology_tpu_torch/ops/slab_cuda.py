@@ -80,8 +80,10 @@ def pack_neighbours_prequant(
     ids_p = torch.cat([graph.to(torch.int32), pad_ids.to(torch.int32)], dim=1)
     safe = ids_p.clamp(0, n - 1).long()
     real = ids_p >= 0
-    vecs = q8[safe.reshape(-1)]
-    vecs = torch.where(real.reshape(-1, 1), vecs, torch.zeros_like(vecs))
+    # masked in place: the gathered table is the pack's one large
+    # transient (N · deg_p · d bytes: 8.6 GB for the graph index at
+    # 131072 x 64 x 1024)
+    vecs = q8[safe.reshape(-1)].masked_fill_(~real.reshape(-1, 1), 0)
     if d % LANE:
         # zero int8 columns leave every dot unchanged; queries are padded
         # to match

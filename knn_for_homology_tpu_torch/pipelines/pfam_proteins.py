@@ -6,14 +6,14 @@ Parity with the reference's full-sequence workload
 full-sequence embeddings, all-vs-all k=1000 search with lossy-ANN self-hit
 repair, homologous-protein ground truth via the shared-domain closure,
 AUC1 + recall@300, merged rankings. The port builds the flat, the LSH
-(2048 bits, as the reference's FAISS IndexLSH) and the IVF index
-(search/ivf.py, the stand-in for the reference's FAISS-HNSW); the graph
-index (hnsw) is not ported yet (ROADMAP.md Queue 1 item 3). The device is
-explicit: "cuda" unless the caller asks for the CPU.
+(2048 bits, as the reference's FAISS IndexLSH), the graph (search/graph.py,
+the stand-in for the reference's FAISS-HNSW, the default; "hnsw" is its
+alias on the command line) and the IVF index (search/ivf.py). The device
+is explicit: "cuda" unless the caller asks for the CPU.
 
 Usage: python -m knn_for_homology_tpu_torch.pipelines.pfam_proteins
-       {flat|lsh|ivf} [--data DIR] [--npy full_sequences.npy] [--k 1000]
-       [--device cuda|cpu]
+       {flat|lsh|graph|hnsw|ivf} [--data DIR] [--npy full_sequences.npy]
+       [--k 1000] [--device cuda|cpu]
 """
 
 import logging
@@ -28,6 +28,7 @@ from ..data.pfam import get_homologous_proteins
 from ..device import resolve_device
 from ..eval import analysis
 from ..search.flat import FlatIndex
+from ..search.graph import GraphIndex
 from ..search.io import read_index, write_index
 from ..search.ivf import IVFIndex
 from ..search.lsh import LSHIndex
@@ -46,17 +47,12 @@ def build_and_search(
 ) -> Dict:
     """Index build + all-vs-all search, with persistence + size report
     (reference: pfam/proteins_search.py:11-57). index_mode: flat | lsh |
-    ivf (graph raises NotImplementedError: not ported yet). LSH scores are
-    Hamming distances, ascending (FAISS's convention)."""
+    graph | ivf (graph: beam-search ANN with M=42 / ef=256 equivalents).
+    LSH scores are Hamming distances, ascending (FAISS's convention)."""
     device = resolve_device(device)
     embeddings = np.asarray(embeddings, dtype=np.float32)
     if index_mode not in INDEX_MODES:
         raise ValueError(index_mode)
-    if index_mode == "graph":
-        raise NotImplementedError(
-            "index mode 'graph' is not ported yet (see ROADMAP.md Queue 1"
-            " item 3)"
-        )
     start = time.time()
     if index_file is not None and Path(index_file).exists():
         index = read_index(index_file, device=device)
@@ -67,6 +63,10 @@ def build_and_search(
         elif index_mode == "lsh":
             index = LSHIndex(
                 embeddings.shape[1], nbits=2048, device=device
+            ).add(embeddings)
+        elif index_mode == "graph":
+            index = GraphIndex(
+                metric="cosine", degree=42, beam_width=256, device=device
             ).add(embeddings)
         else:
             index = IVFIndex(metric="cosine", nprobe=32, device=device).add(
@@ -134,7 +134,7 @@ def run(
     full_sequences_npy: Path,
     full_sequences_ids: List[str],
     protein_to_domain: Dict,
-    index_mode: str = "ivf",
+    index_mode: str = "graph",
     index_file: Optional[Path] = None,
     k: int = 1000,
     mmseqs_results: Optional[Dict] = None,
@@ -148,8 +148,8 @@ def run(
     together with `knn_e_values` (real alignment E-values aligned with each
     hits row) unlocks the merged ranking + combined AUC1 (reference:
     pfam/proteins.py:213-240, 335-372) and the calibration/coverage figure
-    data (reference: proteins.py:502-729). The JAX package defaults to its
-    graph index, which is not ported; the port defaults to ivf."""
+    data (reference: proteins.py:502-729). The index defaults to the graph,
+    as in the reference."""
     embeddings = np.load(full_sequences_npy)
     result = build_and_search(embeddings, index_mode, index_file, k + 1,
                               device=device)
@@ -277,8 +277,7 @@ def main(argv=None):
     parser.add_argument(
         "index_mode", choices=["flat", "lsh", "graph", "hnsw", "ivf"],
         help="'hnsw' is an alias for the graph ANN index; 'ivf' is the"
-        " sub-linear index of int8 cluster slabs (graph/hnsw is not ported"
-        " yet)",
+        " sub-linear index of int8 cluster slabs",
     )
     parser.add_argument("--data", type=Path, default=Path("."))
     parser.add_argument("--npy", default="full_sequences.npy")

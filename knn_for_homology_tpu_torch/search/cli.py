@@ -2,12 +2,12 @@
 with the reference's console script ``seqvec_search_create_index``
 (reference: seqvec_search/create_index.py:18-47, pyproject.toml:28-30):
 builds an index over a dataset's train.npy and persists it. The reference
-script only builds FAISS LSH; ``--kind`` additionally exposes the IVF ANN
-index (incl. the memory-lean int8-slab layout) through the same contract.
-The graph index is not ported yet (ROADMAP.md Queue 1 item 3).
+script only builds FAISS LSH; ``--kind`` additionally exposes the graph
+and IVF ANN indexes (incl. IVF's memory-lean int8-slab layout) through the
+same contract.
 
 Usage: python -m knn_for_homology_tpu_torch.search.cli --index FILE
-       [--dir DIR] [--kind lsh|ivf] [--param 1024] [--lean]
+       [--dir DIR] [--kind lsh|graph|ivf] [--param 1024] [--lean]
        [--device cuda|cpu]
 """
 
@@ -41,8 +41,7 @@ def create_index_main(args: Optional[Sequence[str]] = None) -> None:
         choices=["lsh", "graph", "ivf"],
         default="lsh",
         help="Index family: lsh (reference parity, the default), graph"
-        " (beam-search ANN; not ported yet), or ivf (k-means-routed int8"
-        " cluster slabs)",
+        " (beam-search ANN), or ivf (k-means-routed int8 cluster slabs)",
     )
     parser.add_argument(
         "--param",
@@ -66,16 +65,21 @@ def create_index_main(args: Optional[Sequence[str]] = None) -> None:
     if opts.lean and opts.kind != "ivf":
         # loud, not silent: an ignored explicit flag masks a wrong layout
         parser.error("--lean applies to --kind ivf only")
-    if opts.kind == "graph":
-        raise NotImplementedError(
-            "index kind 'graph' is not ported yet (see ROADMAP.md Queue 1"
-            " item 3)"
-        )
 
     train = opts.dir / "train.npy"
     logger.info("Loading database from %s", train)
     embeddings = np.load(train)
-    if opts.kind == "ivf":
+    if opts.kind == "graph":
+        from .graph import GraphIndex
+
+        logger.info(
+            "Building graph index (beam %d) on %s", opts.param,
+            embeddings.shape,
+        )
+        index = GraphIndex(beam_width=opts.param, device=opts.device).add(
+            embeddings
+        )
+    elif opts.kind == "ivf":
         from .ivf import IVFIndex
 
         nprobe = max(1, opts.param // 64)

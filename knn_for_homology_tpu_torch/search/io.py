@@ -1,8 +1,7 @@
 """Index persistence (port of knn_for_homology_tpu/search/io.py).
 
-Same single-.npz format with a "kind" tag, so a flat index written by
-either package loads in the other. Kinds "flat", "ivf" and "lsh" are
-ported; "graph" waits for ROADMAP.md Queue 1 item 3.
+Same single-.npz format with a "kind" tag, so an index written by either
+package loads in the other: kinds "flat", "ivf", "lsh" and "graph".
 """
 
 from pathlib import Path
@@ -36,8 +35,7 @@ def read_index(path: Path, device="cuda"):
 
         return IVFIndex.from_state(state, device=device)
     if kind == "graph":
-        raise NotImplementedError(
-            "index kind 'graph' is not ported yet (see ROADMAP.md Queue 1"
-            " item 3)"
-        )
+        from .graph import GraphIndex
+
+        return GraphIndex.from_state(state, device=device)
     raise ValueError(f"unknown index kind {kind!r}")

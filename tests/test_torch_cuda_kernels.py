@@ -27,8 +27,10 @@ from knn_for_homology_tpu_torch.ops import (
 )
 from knn_for_homology_tpu_torch.ops.align import encode_sequence
 from knn_for_homology_tpu_torch.ops.distance import similarity_block
-from knn_for_homology_tpu_torch.ops.topk import oneshot_topk
+from knn_for_homology_tpu_torch.ops.topk import oneshot_topk, plain_topk
+from knn_for_homology_tpu_torch.search import graph as graph_mod
 from knn_for_homology_tpu_torch.search.flat import FlatIndex
+from knn_for_homology_tpu_torch.search.graph import GraphIndex
 from knn_for_homology_tpu_torch.search.ivf import IVFIndex
 
 pytestmark = pytest.mark.cuda
@@ -696,3 +698,79 @@ def test_ivf_index_on_the_card_equals_cpu(cuda, n_q, k, kernel):
         # a near-tie swap, or a near-tie at the k-th place
         near = np.abs(wv[r] - wv[r, c]) <= 1e-5
         assert gi[r, c] in set(wi[r][near]) or near[-1], (r, c)
+
+
+def _graph_rows(n=4096, d=128, seed=17):
+    """n rows around 64 centres, d a multiple of 128 (the packed route's
+    rule)."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(64, d).astype(np.float32)
+    return (centers[rng.randint(0, 64, n)]
+            + 0.3 * rng.randn(n, d)).astype(np.float32)
+
+
+def test_graph_build_through_kernel_b(cuda, monkeypatch):
+    # the exact kNN graph (k = degree + 1 = 43 > 32: kernel B) against the
+    # same build over the plain exact top-k on the card: the long-range
+    # edges equal, the kNN columns equal but near-ties of B's 3xTF32
+    # products (fp64 similarities within 1e-5, rank by rank)
+    db = _graph_rows()
+    before = exact_cuda.segment_topr_kernel.launches
+    card = GraphIndex(degree=42, device="cuda").add(db)
+    assert exact_cuda.segment_topr_kernel.launches > before
+    monkeypatch.setattr(graph_mod, "flat_topk",
+                        lambda x, q, k, metric: plain_topk(x, q, k, metric))
+    plain = GraphIndex(degree=42, device="cuda").add(db)
+    got, want = card._graph.cpu().numpy(), plain._graph.cpu().numpy()
+    np.testing.assert_array_equal(got[:, -4:], want[:, -4:])
+    x = card._db.cpu().double().numpy()
+    rows = np.flatnonzero((got != want).any(axis=1))
+    assert rows.size <= 0.02 * len(db)
+    for r in rows:
+        np.testing.assert_allclose(np.sort(x[got[r, :-4]] @ x[r]),
+                                   np.sort(x[want[r, :-4]] @ x[r]),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", slab_cuda.ROUTES)
+def test_graph_search_on_the_card_equals_plain(cuda, monkeypatch, route):
+    # K held to one route, then the same index searched with K's plain
+    # version on the card, and on the CPU: scores within 1e-5, ids equal
+    # but near-ties (K's sums can turn a beam at a near-tie)
+    db = _graph_rows()
+    index = GraphIndex(degree=42, beam_width=64, packed="always",
+                       device="cuda").add(db)
+    monkeypatch.setattr(slab_cuda, "slab_route", lambda *shape: route)
+    before = slab_cuda.beam_expand.routes[route]
+    got = index.search(db[:300], 20)
+    assert slab_cuda.beam_expand.routes[route] > before
+    cpu = GraphIndex.from_state(index.state(), device="cpu").search(
+        db[:300], 20)
+    monkeypatch.setattr(slab_cuda, "beam_expand", slab_cuda.beam_expand_plain)
+    for want in (index.search(db[:300], 20), cpu):
+        (gv, gi), (wv, wi) = got, want
+        np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-5)
+        assert (gi != wi).mean() <= 0.01
+        for r, c in zip(*np.nonzero(gi != wi)):
+            near = np.abs(wv[r] - wv[r, c]) <= 1e-5
+            assert gi[r, c] in set(wi[r][near]) or near[-1], (r, c)
+
+
+@pytest.mark.parametrize("route", slab_cuda.ROUTES)
+def test_graph_beam_loop_makes_no_host_sync(cuda, monkeypatch, route):
+    # the beam loop, K's route choice and its tile plan stay on the device:
+    # no torch operation in beam_search_packed waits for the card
+    index = GraphIndex(degree=42, beam_width=64, packed="always",
+                       device="cuda").add(_graph_rows(2048))
+    pv, pi, sc, deg_p = index._packed_state()
+    monkeypatch.setattr(slab_cuda, "slab_route", lambda *shape: route)
+    args = (index._db, pv, pi, sc, index._db[:300].contiguous(),
+            index._entry_points())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sims, ids = graph_mod.beam_search_packed(
+            *args, k=20, deg_p=deg_p, degree=42, beam_width=64, iters=8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ids.shape == (300, 20) and bool((ids[:, 0] >= 0).all())

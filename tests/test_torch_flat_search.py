@@ -14,11 +14,13 @@ import torch
 from knn_for_homology_tpu.data import Dataset
 from knn_for_homology_tpu.data.fixtures import make_clustered, make_small_random
 from knn_for_homology_tpu.search import flat as jflat
+from knn_for_homology_tpu.search import graph as jgraph
 from knn_for_homology_tpu.ops import topk as jtopk
 from knn_for_homology_tpu.search import io as jio
 from knn_for_homology_tpu_torch.device import resolve_device
 from knn_for_homology_tpu_torch.ops import topk as ttopk
 from knn_for_homology_tpu_torch.search import flat as tflat
+from knn_for_homology_tpu_torch.search import graph as tgraph
 from knn_for_homology_tpu_torch.search import io as tio
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -104,7 +106,8 @@ def test_npz_round_trip_across_packages(clustered, tmp_path, direction):
 def test_unported_backends_and_kinds_raise(tmp_path):
     # approx and sq8 are ported (tests/test_torch_packed.py); an unknown
     # storage raises as in the JAX package, and so does the TPU-only
-    # "pallas" backend
+    # "pallas" backend; every index kind is ported (a graph file loads,
+    # tests/test_torch_graph.py), and an unknown kind raises
     train = np.random.RandomState(0).randn(40, 8).astype(np.float32)
     db = torch.from_numpy(train)
     with pytest.raises(ValueError, match="unknown storage"):
@@ -113,9 +116,12 @@ def test_unported_backends_and_kinds_raise(tmp_path):
         jtopk.flat_topk(train, train[:3], 5, approx=True, storage="pq")
     with pytest.raises(ValueError):
         tflat.FlatIndex(backend="pallas", device="cpu")
-    np.savez(tmp_path / "graph.npz", kind="graph")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.read_index(tmp_path / "graph.npz", device="cpu")
+    jio.write_index(jgraph.GraphIndex(degree=4).add(train), tmp_path / "g")
+    graph = tio.read_index(tmp_path / "g", device="cpu")
+    assert isinstance(graph, tgraph.GraphIndex) and graph.ntotal == 40
+    np.savez(tmp_path / "pq.npz", kind="pq")
+    with pytest.raises(ValueError, match="unknown index kind"):
+        tio.read_index(tmp_path / "pq.npz", device="cpu")
     with pytest.raises(ValueError, match="empty"):
         tflat.FlatIndex(device="cpu").search(np.zeros((1, 4), np.float32), 3)
 

@@ -50,7 +50,8 @@ def test_port_modules_are_all_listed():
                  "utils.artifacts", "pipelines.pfam_domains",
                  "pipelines.cath", "pipelines.harness",
                  "pipelines.slices_pipeline", "pipelines.reverse",
-                 "pipelines.layer_mix", "__main__"):
+                 "pipelines.layer_mix", "__main__", "search.graph",
+                 "pipelines.reproduce", "utils.threefry"):
         assert f"knn_for_homology_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 15
 

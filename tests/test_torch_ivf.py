@@ -18,6 +18,8 @@ Tolerances:
     within ATOL of its own (a near-tie swap, or the k-th place).
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ import torch
 from knn_for_homology_tpu.data.pfam import get_homologous_proteins as jhomologs
 from knn_for_homology_tpu.eval import analysis as janalysis
 from knn_for_homology_tpu.pipelines import pfam_proteins as jpp
+from knn_for_homology_tpu.search import graph as jgraph
 from knn_for_homology_tpu.search import io as jio
 from knn_for_homology_tpu.search import ivf as jivf
 from knn_for_homology_tpu_torch.data.pfam import (
@@ -242,8 +245,11 @@ def _proteins(seed=9, n_fam=12, per=24, d=32):
     return emb, ids, p2d
 
 
-@pytest.mark.parametrize("mode", ["flat", "ivf", "lsh"])
+@pytest.mark.parametrize("mode", ["flat", "ivf", "lsh", "graph"])
 def test_build_and_search_matches_jax(mode):
+    """graph: each package builds its own graph (kernel B's route on the
+    card, the plain exact top-k here) and searches it on the unpacked
+    route, as the JAX package does off the TPU."""
     emb, _, _ = _proteins()
     want = jpp.build_and_search(emb, mode, k=40)
     got = tpp.build_and_search(emb, mode, k=40, device="cpu")
@@ -251,10 +257,24 @@ def test_build_and_search_matches_jax(mode):
     _assert_same((got["scores"], got["hits"]),
                  (want["scores"], want["hits"]), exact=mode == "lsh")
     assert got["index_bytes"] is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpp.build_and_search(emb, "graph", device="cpu")
     with pytest.raises(ValueError):
         tpp.build_and_search(emb, "pq", device="cpu")
+
+
+def test_defaults_equal_jax():
+    """The full-protein pipeline's defaults are the reference's: the graph
+    index, k = 1000 (the port adds only `device`)."""
+    for name in ("run", "build_and_search", "evaluate_protein_hits"):
+        want = inspect.signature(getattr(jpp, name)).parameters
+        got = inspect.signature(getattr(tpp, name)).parameters
+        assert [p for p in got if p != "device"] == list(want), name
+        for key, param in want.items():
+            assert got[key].default == param.default, (name, key)
+        if "device" in got:
+            assert got["device"].default == "cuda"
+    assert tpp.INDEX_MODES == ("flat", "lsh", "graph", "ivf")
+    assert inspect.signature(tpp.run).parameters["index_mode"].default == (
+        "graph")
 
 
 def test_evaluate_protein_hits_matches_jax():
@@ -278,16 +298,18 @@ def test_evaluate_protein_hits_matches_jax():
 
 
 def test_run_matches_jax(tmp_path):
-    """The whole pipeline on the IVF index (self-hit repair, homologs,
-    AUC1 / recall@300) and on the flat index with the merged ranking and
-    the figures."""
+    """The whole pipeline on the IVF index and on the default index, the
+    graph (self-hit repair, homologs, AUC1 / recall@300), and on the flat
+    index with the merged ranking and the figures."""
     emb, ids, p2d = _proteins()
     npy = tmp_path / "full_sequences.npy"
     np.save(npy, emb)
-    want = jpp.run(npy, ids, p2d, index_mode="ivf", k=40)
-    got = tpp.run(npy, ids, p2d, index_mode="ivf", k=40, device="cpu")
-    for key in ("auc1", "recall@300"):
-        assert abs(got[key] - want[key]) <= 1e-9, key
+    for mode in ("ivf", None):
+        kw = {} if mode is None else {"index_mode": mode}
+        want = jpp.run(npy, ids, p2d, k=40, **kw)
+        got = tpp.run(npy, ids, p2d, k=40, device="cpu", **kw)
+        for key in ("auc1", "recall@300"):
+            assert abs(got[key] - want[key]) <= 1e-9, (mode, key)
     n = len(ids)
     mm = {"hits": [np.asarray([(i + 1) % n, (i + 2) % n]) for i in range(n)],
           "e_values": [np.asarray([1e-30, 1e-20])] * n}
@@ -326,8 +348,14 @@ def test_main_cli_matches_jax_and_reads_its_index(tmp_path):
     assert (tdir / "full_sequences_ivf.index").exists()
     assert isinstance(jio.read_index(tdir / "full_sequences_ivf.index"),
                       jivf.IVFIndex)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpp.main(["hnsw", "--data", str(tdir), "--device", "cpu"])
+    # "hnsw", the alias of the graph index, names its files so
+    jpp.main(["hnsw", "--data", str(jdir), "--k", "20"])
+    tpp.main(["hnsw", "--data", str(tdir), "--k", "20", "--device", "cpu"])
+    assert isinstance(jio.read_index(tdir / "full_sequences_hnsw.index"),
+                      jgraph.GraphIndex)
+    names = ("full_sequences_hnsw_scores.npy", "full_sequences_hnsw_hits.npy")
+    got, want = ((np.load(d / nm) for nm in names) for d in (tdir, jdir))
+    _assert_same(tuple(got), tuple(want))
 
 
 def test_self_hit_repair_copy_matches_jax():

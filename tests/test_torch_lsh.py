@@ -21,6 +21,7 @@ from knn_for_homology_tpu.search import io as jio
 from knn_for_homology_tpu.search import lsh as jsearch
 from knn_for_homology_tpu_torch.ops import lsh as tlsh
 from knn_for_homology_tpu_torch.search import cli as tcli
+from knn_for_homology_tpu_torch.search import graph as tgraph
 from knn_for_homology_tpu_torch.search import io as tio
 from knn_for_homology_tpu_torch.search import ivf as tivf
 from knn_for_homology_tpu_torch.search import lsh as tsearch
@@ -187,14 +188,37 @@ def test_create_index_cli_ivf(train_dir, lean):
     assert jio.read_index(out).ntotal == 300
 
 
+def test_create_index_cli_graph_matches_jax(train_dir):
+    """--kind graph, --param = the beam width: the file holds the JAX
+    package's graph and loads in both packages."""
+    tcli.create_index_main(["--dir", str(train_dir), "--index",
+                            str(train_dir / "t.index"), "--kind", "graph",
+                            "--param", "64", "--device", "cpu"])
+    jcli.create_index_main(["--dir", str(train_dir), "--index",
+                            str(train_dir / "j.index"), "--kind", "graph",
+                            "--param", "64"])
+    with np.load(train_dir / "t.index") as a, np.load(
+        train_dir / "j.index"
+    ) as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert str(a["kind"]) == "graph" and int(a["beam_width"]) == 64
+        for key in b.files:
+            if key == "vectors":  # the normalisation's fp32 sums
+                np.testing.assert_allclose(a[key], b[key], rtol=0, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(a[key], b[key])
+    index = tio.read_index(train_dir / "t.index", device="cpu")
+    assert isinstance(index, tgraph.GraphIndex) and index.beam_width == 64
+    assert jio.read_index(train_dir / "t.index").ntotal == 300
+
+
 def test_create_index_cli_refusals(train_dir):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(SystemExit):
         tcli.create_index_main(["--dir", str(train_dir), "--index",
-                                str(train_dir / "g.index"), "--kind", "graph",
-                                "--device", "cpu"])
+                                str(train_dir / "l.index"), "--lean",
+                                "--kind", "graph", "--device", "cpu"])
     with pytest.raises(SystemExit):
         tcli.create_index_main(["--dir", str(train_dir), "--index",
                                 str(train_dir / "l.index"), "--lean",
                                 "--device", "cpu"])
-    assert not (train_dir / "g.index").exists()
     assert not (train_dir / "l.index").exists()

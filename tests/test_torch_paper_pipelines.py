@@ -320,8 +320,9 @@ def test_cli_hub(tmp_path, capsys):
     assert exit_info.value.code == 0
     out = capsys.readouterr().out
     assert all(name in out for name in thub.COMMANDS)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(SystemExit) as exit_info:  # a workload is required
         thub.main(["reproduce"])
+    assert exit_info.value.code == 2
     with pytest.raises(SystemExit):
         thub.main(["no-such-command"])
     np.save(tmp_path / "M.npy",

@@ -148,6 +148,10 @@ def test_scoring_through_the_plan_equals_plain(case, deg_p, degree):
     (64, 32, 2048, 1024, "tiles"),     # each node once, too few queries
     (256, 32, 16384, 1024, "pairs"),   # ~0.5 pairs a node
     (1024, 8, 65536, 1024, "pairs"),   # a graph beam step, ~0.125
+    # the graph index's beam step at k = 1000 (2048-query blocks over
+    # 131072 nodes): measured faster on pairs at steps 20-61, slower only
+    # at step 0 (PERF.md §6, graph findings)
+    (2048, 8, 131072, 1024, "pairs"),
     (1024, 8, 65536, 16384, "tiles"),  # the query outgrows shared memory
 ])
 def test_route_from_shapes(q_n, e, n_nodes, d, route):
