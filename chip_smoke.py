@@ -67,7 +67,21 @@ CLI, the Pfam20 domain and full-protein workloads, CATH20). Phases:
      pipeline's lsh mode (2048 bits) all-vs-all at k = 1000 over the
      131072 vectors; (e) CATH20's all-vs-all search (cosine and l2,
      k = 10, kernel A; 14433 seeded vectors and C/A/T/H labels) and its
-     top-1 evaluation, A held to the plain route.
+     top-1 evaluation, A held to the plain route;
+ 11. the other encoder families through the registry (models/{elmo,bert,
+     xlnet,unirep,plus_rnn,cpcprot}.py; plain PyTorch, fp32: cuBLAS
+     products, cuDNN convolutions, the recurrences as step loops): SeqVec,
+     ESM, ESM1b, ProtBert BFD, ProtAlbert BFD, ProtXLNet UniRef100, UniRep,
+     PLUS and CPCProt at their published shapes (weights from a seeded
+     torch.Generator on the card) embed 64 proteins of the length mix plus
+     one of 1100 aa (ESM's 1022-residue cut); residues/s, batches, padded
+     tokens and peak memory per key; each key's pooled vectors of two
+     short proteins on the card against the same encoder on the CPU; a
+     profile of one warm batch of each key (device time by group,
+     launches, per recurrent step where there are steps, busy share); then the seeded SeqVec weights saved as
+     a converted .npz and run through `embed-domains` (its default
+     embedder) and `embed-one --embedder SeqVec` as subprocesses, their
+     outputs held to the registry's.
 
 Phase 3 holds kernel A (its FFMA product) at 1024 queries, k = 13, and
 kernel B (3xTF32 wgmma products) at 512 queries of the exact k = 1000 plan,
@@ -178,6 +192,52 @@ TOKEN_BUDGET = 7000
 # to BF16_TOL in phase 3)
 ENC_MIN_COSINE = 0.98
 ENC_MAX_REL_ERR = 0.2
+# phase 11: the other encoder families at their published shapes (random
+# weights from a seeded torch.Generator on the card) through the registry:
+# OTHER_PROTEINS proteins of the repo's length mix (phase 8's lognormal,
+# median 330 aa) plus one of OTHER_LONG aa, which ESM cuts at 1022 residues
+OTHER_PROTEINS, OTHER_LONG = 64, 1100
+# key → (model module name, published config name); ESM and ESM1b share one
+# config and one set of weights
+OTHER_KEYS = {
+    "SeqVec": ("elmo", "SEQVEC"),
+    "ESM": ("bert", "ESM1B"),
+    "ESM1b": ("bert", "ESM1B"),
+    "ProtBert BFD": ("bert", "PROTBERT"),
+    "ProtAlbert BFD": ("bert", "PROTALBERT"),
+    "ProtXLNet UniRef100": ("xlnet", "PROTXLNET"),
+    "UniRep": ("unirep", "UNIREP"),
+    "PLUS": ("plus_rnn", "PLUS_RNN"),
+    "CPCProt": ("cpcprot", "CPCPROT"),
+}
+# phase 11, card vs CPU at full width: each key's pooled vectors of two
+# proteins on the card and through the same encoder on the CPU (the card's
+# weights moved across). Every family is fp32 on both devices (TF32 off),
+# so the two sum the same products in other orders, an ulp or so apart. The
+# transformers, PLUS and CPCProt keep that size at any length
+# (scripts/torch_recurrence_drift.py: a one-ulp change of every weight
+# moves their pooled vectors by ~1e-6 at 4 to 64 aa); with these random
+# weights SeqVec's second LSTM and UniRep's mLSTM are chaotic and grow it
+# with the length (SeqVec 1.5e-5 at 8 aa, 4.5e-4 at 16, 3.3e-2 at 64;
+# UniRep 8.4e-6 at 16 aa, 4.4e-3 at 64; CPU). So those two are held at
+# OTHER_AGREE_LEN, where that drift is at most 1.5e-5, and their drift at
+# OTHER_DRIFT_LENGTHS is logged, not held. Measured worst held: a relative
+# L2 error of 1.88e-5 (SeqVec at 8 aa; the other keys ≤ 5.5e-6), cosines
+# 1 - 1e-9 or closer (H100, 700 W); unheld, SeqVec drifted to 0.036 at
+# 64 aa and UniRep to 0.145. Allowed: a relative L2 error of
+# OTHER_MAX_REL_ERR (5x the worst measured) and a cosine of
+# OTHER_MIN_COSINE.
+OTHER_HELD_LEN = 64
+OTHER_AGREE_LEN = {"SeqVec": 8, "UniRep": 16}
+OTHER_DRIFT_LENGTHS = (8, 16, 32, 64)
+OTHER_MIN_COSINE = 1 - 1e-7
+OTHER_MAX_REL_ERR = 1e-4
+# phase 11 profile groups (device time of one warm batch)
+OTHER_GROUPS = (("GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "nvjet",
+                           "gemv", "dot_kernel")),
+                ("elementwise", ("elementwise", "vectorized", "unrolled")),
+                ("reductions", ("reduce", "softmax", "norm", "cat", "gather",
+                                "index")))
 # phase 3, kernels J and K at the IVF path's shapes: the phase-9 index's
 # 2048 cells of 64 members (the auto sizing, half full); J scans 256 of
 # them for 1024 queries at k = 1000, K expands 32 probes for 4096 queries
@@ -1927,6 +1987,257 @@ def run_encoder(kernels, seed):
         f" {rows_.size} of {ids_g.size} slots, all near-ties within {tie:.3g}")
 
 
+def other_padded_tokens(key, embedder, seqs):
+    """(batches, padded tokens) the encoder of `key` takes for `seqs`: its
+    own batching and each family's input width."""
+    if key == "CPCProt":
+        chunks = embedder.chunks(seqs)
+        return len(chunks), sum(ids.size for _, ids, _ in chunks)
+    batches = embedder.batches(seqs)
+    width = {
+        "SeqVec": lambda b: b.padded_len,
+        "UniRep": lambda b: b.padded_len + 1,
+        "ProtXLNet UniRef100": lambda b: b.padded_len + 2,
+        "PLUS": lambda b: b.padded_len,
+    }.get(key, lambda b: min(b.padded_len + 2, embedder.usable))
+    return len(batches), sum(len(b.sequences) * width(b) for b in batches)
+
+
+def profile_groups(prof):
+    """{group: (ms, launches)} of one profiled window's device kernels, by
+    OTHER_GROUPS (first match), the rest under "other"."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        name = ev.key.lower()
+        if "memcpy" in name or "memset" in name:
+            group = "copies"
+        else:
+            group = next((label for label, words in OTHER_GROUPS
+                          if any(w in name for w in words)), "other")
+        ms, n = out.get(group, (0.0, 0))
+        out[group] = (ms + ev.self_device_time_total / 1e3, n + ev.count)
+    assert out, "the profiler saw no device time"
+    return out
+
+
+def profile_other_batch(key, embedder, seqs):
+    """One warm batch of `key` (its middle batch) under torch.profiler:
+    device time by group, kernel launches (and per recurrent step: the
+    time loops' steps, summed over layers and directions) and the busy
+    share."""
+    import torch
+
+    if key == "CPCProt":
+        chunks = embedder.chunks(seqs)
+        _, ids, _ = chunks[len(chunks) // 2]
+        ids = torch.from_numpy(ids).cuda()
+        rows, width = ids.shape[0], ids.shape[1]
+
+        def run():
+            return embedder.encoder(ids)
+
+        steps = width  # the GRU over patches
+    else:
+        batches = embedder.batches(seqs)
+        batch = batches[len(batches) // 2]
+        rows, width = len(batch.sequences), batch.padded_len
+
+        def run():
+            return embedder.run_batch(batch)
+
+        # the published configs' time loops: SeqVec 2 layers x 2
+        # directions over <S> … </S>; UniRep one mLSTM over <start> +
+        # residues; PLUS 3 layers x 2 directions
+        steps = {"SeqVec": 4 * (width + 2), "UniRep": width + 1,
+                 "PLUS": 6 * width}.get(key)
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = profile_groups(prof)
+    device_ms = sum(ms for ms, _ in groups.values())
+    launches = sum(n for _, n in groups.values())
+    per_step = f", {launches / steps:.1f} a recurrent step" if steps else ""
+    log(f"phase 11 profile {key}, one warm batch of {rows} x {width}"
+        f"{' patches' if key == 'CPCProt' else ''} (wall {wall_ms:.1f} ms"
+        f" under the profiler, device {device_ms:.1f} ms, busy"
+        f" {device_ms / wall_ms:.3f}, {launches} kernel launches{per_step}): "
+        + ", ".join(f"{g} {ms:.1f} ms ({ms / device_ms:.3f}, {n} launches)"
+                    for g, (ms, n) in sorted(groups.items())))
+
+
+def check_card_vs_cpu(key, embedder, config, rng):
+    """Pooled vectors on the card and through the same encoder on the CPU
+    (the card's weights moved across), held on two proteins of
+    OTHER_AGREE_LEN / OTHER_HELD_LEN aa (the second carries X and U), plus
+    one protein a length of OTHER_DRIFT_LENGTHS for the keys of
+    OTHER_AGREE_LEN → (held min cosine, held max rel. L2, {length: rel})."""
+    from knn_for_homology_tpu_torch.models.convert import params_to_torch
+    from knn_for_homology_tpu_torch.models.registry import get_embedder
+
+    def protein(n):
+        return AAS[rng.randint(0, 20, n)].tobytes().decode()
+
+    n = OTHER_AGREE_LEN.get(key, OTHER_HELD_LEN)
+    drift_lengths = OTHER_DRIFT_LENGTHS if key in OTHER_AGREE_LEN else ()
+    seqs = [protein(n), "XU" + protein(n * 5 // 8 - 2)]
+    seqs += [protein(m) for m in drift_lengths]
+    got = embedder.embed_pooled(seqs)
+    cpu = get_embedder(key, config=config, device="cpu",
+                       params=params_to_torch(embedder.encoder.params(), "cpu"))
+    want = cpu.embed_pooled(seqs).astype(np.float64)
+    got = got.astype(np.float64)
+    del cpu
+    cos = np.sum(got * want, 1) / (np.linalg.norm(got, axis=1)
+                                   * np.linalg.norm(want, axis=1))
+    rel = np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
+    held_cos, held_rel = float(cos[:2].min()), float(rel[:2].max())
+    assert held_cos >= OTHER_MIN_COSINE and held_rel <= OTHER_MAX_REL_ERR, (
+        key, held_cos, held_rel, n)
+    return held_cos, held_rel, dict(zip(drift_lengths, rel[2:].tolist()))
+
+
+def run_embed_cli(seqvec, tmp, seqs):
+    """The normal entry points: the seeded SeqVec tree saved as a converted
+    .npz (config in its meta), then `embed-domains` with its default
+    embedder and `embed-one --embedder SeqVec`, each a `python -m`
+    subprocess on the card; their outputs held to the registry's."""
+    from knn_for_homology_tpu_torch.models.convert import save_params
+    from knn_for_homology_tpu_torch.models.pooling import pool_domain_range
+
+    tmp = Path(tmp)
+    meta = {"config": {k: v for k, v in dataclasses.asdict(
+        seqvec.config).items() if k != "dtype"}}
+    ckpt = tmp / "SeqVec.npz"
+    save_params(seqvec.encoder.params(), ckpt, meta=meta)
+    full = seqs[:6]
+    names = [f"P{i}" for i in range(len(full))]
+    (tmp / "full.fasta").write_text(
+        "".join(f">{n}\n{s}\n" for n, s in zip(names, full)))
+    # in the CLI's output order: by protein, then by range
+    train = [(0, 1, 40), (0, 41, len(full[0]))]
+    train += [(i, 1, 40) for i in range(1, 4)]
+    test = [(i, 5, len(s) - 3) for i, s in enumerate(full[4:], start=4)]
+    for split, ranges in (("train", train), ("test", test)):
+        (tmp / f"{split}.fasta").write_text("".join(
+            f">P{i}/{a}-{b}\nX\n" for i, a, b in ranges))
+    embed = [sys.executable, "-m", "knn_for_homology_tpu_torch.pipelines.embed"]
+    t0 = time.perf_counter()
+    subprocess.run(embed + ["embed-domains", str(tmp / "full.fasta"),
+                            str(tmp / "train.fasta"), str(tmp / "test.fasta"),
+                            str(tmp / "domains"), "--checkpoint", str(ckpt)],
+                   check=True, cwd=ROOT, timeout=600)
+    domains_s = time.perf_counter() - t0
+    per_residue = [np.concatenate(list(e), axis=-1)
+                   for e in seqvec.embed_per_residue(full)]
+    worst = 0.0
+    for split, ranges in (("train", train), ("test", test)):
+        got = np.load(tmp / "domains" / f"{split}.npy")
+        want = np.stack([pool_domain_range(per_residue[i], a, b)
+                         for i, a, b in ranges])[:, 1024:2048]
+        assert got.shape == (len(ranges), 1024), got.shape
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        assert err <= 1e-5, f"phase 11: embed-domains {split} differs: {err}"
+        worst = max(worst, err)
+    t0 = time.perf_counter()
+    subprocess.run(embed + ["embed-one", str(tmp / "full.fasta"),
+                            str(tmp / "one"), "--embedder", "SeqVec",
+                            "--checkpoint", str(ckpt)],
+                   check=True, cwd=ROOT, timeout=600)
+    one_s = time.perf_counter() - t0
+    variants = seqvec.embed_layer_variants(full)
+    for name, want in variants.items():
+        got = np.load(tmp / "one" / f"{name}.npy")
+        assert got.shape == (len(full), 1024) and np.isfinite(got).all()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        assert err <= 1e-5, f"phase 11: embed-one {name} differs: {err}"
+    log(f"phase 11 embed CLI (SeqVec .npz of {ckpt.stat().st_size / 2**20:.0f}"
+        f" MiB): embed-domains (default embedder) {domains_s:.1f} s, LSTM1"
+        f" slices [{len(train)} + {len(test)}, 1024] equal to the registry's"
+        f" (max relative error {worst:.3g}); embed-one --embedder SeqVec"
+        f" {one_s:.1f} s, its 4 layer files equal to the registry's")
+
+
+def run_other_encoders(seed):
+    """Phase 11: every other registry key at its published shape on the
+    card (seeded weights), embedding OTHER_PROTEINS + 1 proteins; card vs
+    CPU (check_card_vs_cpu); a profile of one warm batch of each key; then
+    the embed CLI's SeqVec entry points."""
+    import torch
+
+    from knn_for_homology_tpu_torch import models
+    from knn_for_homology_tpu_torch.models.registry import get_embedder
+
+    rng = np.random.RandomState(seed + 11)
+    lengths = list(protein_lengths(rng, OTHER_PROTEINS)) + [OTHER_LONG]
+    seqs = [AAS[rng.randint(0, 20, n)].tobytes().decode() for n in lengths]
+    t_phase = time.perf_counter()
+    shared = {}  # config name → card weights (ESM and ESM1b share them)
+    seqvec = None
+    for key, (mod_name, cfg_name) in OTHER_KEYS.items():
+        module = getattr(models, mod_name)
+        config = getattr(module, cfg_name)
+        t0 = time.perf_counter()
+        if cfg_name not in shared:
+            shared.clear()
+            torch.cuda.empty_cache()
+            shared[cfg_name] = module.init_params(config, seed=seed,
+                                                  device="cuda")
+        embedder = get_embedder(key, params=shared[cfg_name], config=config,
+                                device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in embedder.encoder.parameters())
+        n_batches, padded = other_padded_tokens(key, embedder, seqs)
+        max_len = getattr(embedder, "max_len", None) or 10**9
+        residues = sum(min(len(s), max_len) for s in seqs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pooled = embedder.embed_pooled(seqs)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        assert pooled.shape == (len(seqs), embedder.dim), (key, pooled.shape)
+        assert np.isfinite(pooled).all(), key
+        extra = ""
+        if mod_name == "bert" and cfg_name == "ESM1B":
+            long_out = next(iter(embedder.embed_per_residue(seqs[-1:])))
+            assert long_out.shape == (1022, embedder.dim), long_out.shape
+            extra = f" | the {OTHER_LONG}-aa protein cut to 1022 residues"
+        cos, rel, drift = check_card_vs_cpu(key, embedder, config, rng)
+        if drift:
+            extra += " | drift, card vs CPU, by length (not held): " + ", ".join(
+                f"{n} aa {d:.3g}" for n, d in drift.items())
+        held = OTHER_AGREE_LEN.get(key, OTHER_HELD_LEN)
+        log(f"phase 11 {key}: {n_params / 1e6:.1f} M parameters (init"
+            f" {init_s:.2f} s) | {len(seqs)} proteins, {residues} residues,"
+            f" {n_batches} batches, {padded} padded tokens | embed"
+            f" {wall:.3f} s ({residues / wall:.0f} residues/s) | peak"
+            f" {peak / 2**30:.2f} GiB | card vs CPU on 2 proteins of"
+            f" {held}/{held * 5 // 8} aa: cosine min {cos:.9f}, relative L2"
+            f" error max {rel:.3g}{extra}")
+        profile_other_batch(key, embedder, seqs)
+        if key == "SeqVec":
+            seqvec = embedder
+        else:
+            del embedder
+    shared.clear()
+    with tempfile.TemporaryDirectory(prefix="knn_seqvec_") as tmp:
+        run_embed_cli(seqvec, tmp, seqs)
+    del seqvec
+    torch.cuda.empty_cache()
+    log(f"phase 11 done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2196,6 +2507,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     run_paper_pipelines(ds, train, test, kernels, args.seed)
     smoke_dir.cleanup()
+
+    # ---- phase 11: the other encoder families
+    del train, test
+    torch.cuda.empty_cache()
+    run_other_encoders(args.seed)
 
     log(card)
     print(json.dumps({"kernels": [kernels[k] for k in "ABCDEFGHIJK"]}))

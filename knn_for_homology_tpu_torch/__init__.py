@@ -1,9 +1,10 @@
 """PyTorch + CUDA port of knn_for_homology_tpu: the search-and-rescore path,
 the headline bench, the ProtT5 encoder path (sequences → pooled
-embeddings → neighbours), the IVF and LSH indexes with the index CLI, and
-the paper pipelines (Pfam20 domains and full proteins, CATH20, harness,
-slices, reverse control, layer mix) behind `python -m
-knn_for_homology_tpu_torch`.
+embeddings → neighbours), the other encoder families of the embedder
+registry with their checkpoint converters, the IVF, LSH and graph indexes
+with the index CLI, and the paper pipelines (Pfam20 domains and full
+proteins, CATH20, harness, slices, reverse control, layer mix) behind
+`python -m knn_for_homology_tpu_torch`.
 
 The JAX package next door stays the reference: every function here is held
 against its JAX counterpart on the same numpy inputs (tests/test_torch_*.py).

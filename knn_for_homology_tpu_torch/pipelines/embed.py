@@ -5,13 +5,16 @@
     cut to 3096, length-sorted token-budget batches, mean-pool (or the
     per-residue-L2 variant), un-sort, npy + ids json + wall-time sidecar
   * `embed-one`: one embedder over one fasta into a directory (ids.json,
-    <embedder>.npy, <embedder>.time1.txt), as cath/embed.py's main
+    <embedder>.npy, <embedder>.time1.txt; SeqVec saved as its 4 layer
+    variants, "SeqVec Sum.npy" etc., reference: cath/embed.py:100-107),
+    as cath/embed.py's main
   * `embed-all` ↔ cath/embed_all.py: every registry embedder over one
     fasta, each in an `embed-one` subprocess (one embedder's crash does
     not stop the sweep; reference rationale: cath/embed_all.py:1-11),
     file-existence idempotency, the AA-composition baseline inline; keys
     with no checkpoint under --checkpoints are skipped
-  * `embed-domains` ↔ pfam/embed_pfam_seqvec.py: embed full sequences,
+  * `embed-domains` ↔ pfam/embed_pfam_seqvec.py: embed full sequences
+    (SeqVec by default, its [3, L, d] layers concatenated to [L, 3d]),
     mean-pool each domain range, emit the dataset-contract npy/json pairs
 
 Usage:
@@ -28,6 +31,8 @@ Usage:
 """
 
 import argparse
+import functools
+import inspect
 import json
 import logging
 import subprocess
@@ -42,7 +47,12 @@ from ..config import DEFAULT_TOKEN_BATCH, MAX_SEQ_LEN
 from ..data.fasta import read_fasta
 from ..data.pfam import build_domain_ranges
 from ..models.pooling import pool_domain_range
-from ..models.registry import EMBEDDERS, AACompositionEmbedder, get_embedder
+from ..models.registry import (
+    EMBEDDERS,
+    AACompositionEmbedder,
+    SeqVecEmbedder,
+    get_embedder,
+)
 from ..utils.logging import configure_logging
 from ..utils.timing import write_time_sidecar
 
@@ -52,6 +62,13 @@ logger = logging.getLogger(__name__)
 def _make_embedder(name: str, checkpoint: Optional[Path], device, **kw):
     if name == "AA Composition":
         return AACompositionEmbedder()
+    ctor = EMBEDDERS.get(name)
+    if ctor is not None:
+        # the constructors take different knobs (token_budget /
+        # max_batch_tokens / max_len …): pass only what each one takes
+        target = ctor.func if isinstance(ctor, functools.partial) else ctor
+        accepted = set(inspect.signature(target.__init__).parameters)
+        kw = {k: v for k, v in kw.items() if k in accepted}
     return get_embedder(name, checkpoint=checkpoint, device=device, **kw)
 
 
@@ -75,7 +92,7 @@ def cmd_embed(args) -> None:
         args.device,
         token_budget=args.batch_size,
         max_len=args.max_len,
-        l2_per_residue=args.l2,
+        **({"l2_per_residue": True} if args.l2 else {}),
     )
     start = time.time()
     embeddings = embedder.embed_pooled(sequences)
@@ -93,7 +110,12 @@ def cmd_embed_one(args) -> None:
     (out_dir / "ids.json").write_text(json.dumps(ids))
     embedder = _make_embedder(args.embedder, args.checkpoint, args.device)
     start = time.time()
-    np.save(out_dir / f"{args.embedder}.npy", embedder.embed_pooled(sequences))
+    if isinstance(embedder, SeqVecEmbedder):
+        for name, arr in embedder.embed_layer_variants(sequences).items():
+            np.save(out_dir / f"{name}.npy", arr)
+    else:
+        np.save(out_dir / f"{args.embedder}.npy",
+                embedder.embed_pooled(sequences))
     write_time_sidecar(
         out_dir / f"{args.embedder}.time1.txt", time.time() - start
     )
@@ -117,7 +139,9 @@ def cmd_embed_all(args) -> None:
     for name in sorted(EMBEDDERS):
         if name == "AA Composition":
             continue
-        if (out_dir / f"{name}.npy").is_file():
+        done_file = out_dir / (
+            "SeqVec Sum.npy" if name == "SeqVec" else f"{name}.npy")
+        if done_file.is_file():
             logger.info("%s already done, skipping", name)
             continue
         checkpoint = (
@@ -150,6 +174,8 @@ def cmd_embed_domains(args) -> None:
 
     data_train, data_test = {}, {}
     for seq_id, per_residue in zip(ids, embedder.embed_per_residue(sequences)):
+        if per_residue.ndim == 3:  # SeqVec [3, L, d] → concat layer features
+            per_residue = np.concatenate(list(per_residue), axis=-1)
         for start, stop, annotation in domain_ranges_train.get(seq_id, []):
             data_train[annotation] = pool_domain_range(per_residue, start, stop)
         for start, stop, annotation in domain_ranges_test.get(seq_id, []):

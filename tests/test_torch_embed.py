@@ -1,5 +1,5 @@
 """The port's embedding path against the JAX package: token-budget batches,
-pooling, carrying weights across (params_from_jax, the .npz checkpoint),
+pooling, carrying weights across (params_to_torch, the .npz checkpoint),
 ProtT5Embedder.embed_pooled, the `embed` CLI and the flagship forward step
 (__graft_entry__.entry()'s forward_step).
 
@@ -31,7 +31,7 @@ from knn_for_homology_tpu_torch.models import pooling as tpooling
 from knn_for_homology_tpu_torch.models import t5 as tt5
 from knn_for_homology_tpu_torch.models.convert import (
     load_t5_checkpoint,
-    params_from_jax,
+    params_to_torch,
 )
 from knn_for_homology_tpu_torch.models.registry import (
     AACompositionEmbedder,
@@ -94,7 +94,7 @@ def test_pooling_matches(pool):
 def test_params_from_jax_round_trip():
     params = jt5.init_params(jt5.TINY, seed=0)
     tree = jax.tree.map(np.asarray, params)
-    ported = params_from_jax(tree, torch.bfloat16, "cpu")
+    ported = params_to_torch(tree, "cpu", torch.bfloat16)
     pairs = zip(jax.tree_util.tree_leaves(params),
                 jax.tree_util.tree_leaves(ported))
     for j, t in pairs:
@@ -118,7 +118,7 @@ def test_embed_pooled_matches_jax(l2):
     seqs = _sequences(2, 12, 5, 250)  # padded lengths 128 and 256
     want = JEmbedder(config=config_j, params=params, token_budget=1024,
                      l2_per_residue=l2).embed_pooled(seqs)
-    ported = params_from_jax(jax.tree.map(np.asarray, params), torch.bfloat16, "cpu")
+    ported = params_to_torch(jax.tree.map(np.asarray, params), "cpu", torch.bfloat16)
     embedder = ProtT5Embedder(config=config_t, params=ported, token_budget=1024,
                               l2_per_residue=l2, device="cpu")
     got = embedder.embed_pooled(seqs)
@@ -179,7 +179,9 @@ def test_port_checkpoint_round_trip(tmp_path):
 def test_registry_names():
     assert isinstance(get_embedder("AA Composition"), AACompositionEmbedder)
     with pytest.raises(KeyError):
-        get_embedder("SeqVec")
+        get_embedder("No such embedder")
+    with pytest.raises(ValueError):
+        get_embedder("SeqVec", device="cpu")  # no weights
     with pytest.raises(ValueError):
         ProtT5Embedder(device="cpu")  # no weights
 
@@ -204,8 +206,8 @@ def test_forward_step_matches_graft_entry(fused):
                            num_layers=2, num_heads=4)
     pooled = l2_normalize(mean_pool(jt5.encode(params, ids, mask, jconfig), mask))
     want_all = np.asarray(pooled) @ np.asarray(db).T  # [16, 1024]
-    encoder = tt5.T5Encoder(config, params_from_jax(
-        jax.tree.map(np.asarray, params), torch.bfloat16, "cpu"))
+    encoder = tt5.T5Encoder(config, params_to_torch(
+        jax.tree.map(np.asarray, params), "cpu", torch.bfloat16))
     sims, hit_ids = entry.forward_step(
         encoder, torch.tensor(np.asarray(db)), torch.tensor(np.asarray(ids)),
         torch.tensor(np.asarray(mask)), k=13,

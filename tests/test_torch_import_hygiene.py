@@ -51,7 +51,9 @@ def test_port_modules_are_all_listed():
                  "pipelines.cath", "pipelines.harness",
                  "pipelines.slices_pipeline", "pipelines.reverse",
                  "pipelines.layer_mix", "__main__", "search.graph",
-                 "pipelines.reproduce", "utils.threefry"):
+                 "pipelines.reproduce", "utils.threefry", "models.elmo",
+                 "models.bert", "models.xlnet", "models.unirep",
+                 "models.plus_rnn", "models.cpcprot", "models.module"):
         assert f"knn_for_homology_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 15
 

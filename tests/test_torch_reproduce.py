@@ -65,8 +65,11 @@ def test_registry_aliases(checkpoints):
         embedder = tregistry.get_embedder(
             name, checkpoint=checkpoints / "ProtT5 XL U50", device="cpu")
         assert embedder.name == "ProtT5 XL U50" and embedder.dim == 64
-    with pytest.raises(KeyError, match="SeqVec"):
+    assert set(tregistry.EMBEDDERS) == set(jregistry.EMBEDDERS)
+    with pytest.raises(ValueError, match="checkpoint"):
         tregistry.get_embedder("SeqVec", device="cpu")
+    with pytest.raises(KeyError, match="available"):
+        tregistry.get_embedder("No such embedder", device="cpu")
 
 
 def test_embed_all_skips_keys_without_checkpoint(tmp_path, checkpoints):

@@ -23,7 +23,7 @@ import torch
 
 from knn_for_homology_tpu.models import t5 as jt5
 from knn_for_homology_tpu_torch.models import t5 as tt5
-from knn_for_homology_tpu_torch.models.convert import params_from_jax
+from knn_for_homology_tpu_torch.models.convert import params_to_torch
 
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -111,7 +111,7 @@ def _encode_both(dtype, length, fused, flags, seed=0):
     config_j = dataclasses.replace(jt5.TINY, dtype=jdt, **flags)
     config_t = dataclasses.replace(tt5.TINY, dtype=tdt, **flags)
     params = jt5.init_params(config_j, seed=seed)
-    ported = params_from_jax(jax.tree.map(np.asarray, params), tdt, "cpu")
+    ported = params_to_torch(jax.tree.map(np.asarray, params), "cpu", tdt)
     rng = np.random.RandomState(seed + 1)
     ids = rng.randint(3, 24, size=(3, length)).astype(np.int32)
     mask = np.ones((3, length), dtype=bool)
