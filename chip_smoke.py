@@ -81,7 +81,26 @@ CLI, the Pfam20 domain and full-protein workloads, CATH20). Phases:
      launches, per recurrent step where there are steps, busy share); then the seeded SeqVec weights saved as
      a converted .npz and run through `embed-domains` (its default
      embedder) and `embed-one --embedder SeqVec` as subprocesses, their
-     outputs held to the registry's.
+     outputs held to the registry's;
+ 12. the sharded path (parallel/) on phase 4's vectors, launch counts reset
+     after the unsharded counterparts are computed: (a) one NCCL rank in
+     this process at full width, 131072 x 1024 and 4096 queries:
+     db_sharded_topk at k = 1000 over all rows with n_valid 131071
+     (kernel B masks the pad row), ShardedFlatIndex (B) and its sq8-sym
+     storage (F), ShardedIVFIndex per-probe (K) and union (J),
+     ShardedGraphIndex (B builds, K searches), ShardedLSHIndex and a
+     ShardSweep of two spilled graph shards, each held to the port's
+     unsharded index of its kind, with recall@10 against the flat exact
+     top-10; (b) two gloo ranks sharing the card (collectives staged
+     through host memory): the same indexes over 32768 rows and 1024
+     queries, held to the dry run's goldens (ids of the exact top-k; IVF
+     at a covering nprobe and budget; LSH bit-equal), and encode_sharded
+     at ProtT5-XL width (16 + 16 heads, d_ff 8192 + 8192, kernels G
+     without the residual, H) on 64 proteins of the length mix and one of
+     1500 aa, held to the unsharded T5Encoder within phase 8's bound; (c)
+     dryrun_multichip(2) on gloo ranks of the card; (d) align_pairs /
+     sw_scores on 4096 pairs of the main path's mix through C (one lane a
+     group), bit-equal to the plain version, with GCUPS.
 
 Phase 3 holds kernel A (its FFMA product) at 1024 queries, k = 13, and
 kernel B (3xTF32 wgmma products) at 512 queries of the exact k = 1000 plan,
@@ -863,6 +882,23 @@ def check_encoder_kernels(kernels, seed):
         f" {err:.3g}, {ms:.3f} ms vs plain {plain_ms:.3f} ms, two bf16"
         f" torch.matmul calls {lib_ms:.3f} ms, bound"
         f" {kernels['G']['bound_ms']:.3f} ms ({kernels['G']['bound_by']})")
+    # G's partial-sum epilogue (residual=False), at one rank's shapes in
+    # phase 12's tensor-parallel encoder: d_ff split over two ranks, wi's
+    # column half and wo's row half
+    half = f // 2
+    tp_args = (x, ln, wi[:, :half].contiguous(), wo[:half].contiguous())
+    got = ffn_cuda.fused_ffn_t5(*tp_args, residual=False)
+    tp_err = check_bf16("G residual=False", got,
+                        fused_ffn_plain(*tp_args, residual=False))
+    tp_ms = cuda_ms(lambda: ffn_cuda.fused_ffn_t5(*tp_args, residual=False))
+    tp_plain_ms = cuda_ms(lambda: fused_ffn_plain(*tp_args, residual=False))
+    tp_bound = bound(4 * t_n * d * half, "bf16", tensor_bytes(*tp_args, got))
+    del tp_args, got
+    log(f"phase 3 kernel G ffn_fused residual=False (one of two tensor-"
+        f"parallel ranks) [T={t_n}, D={d}, F={half}]: max_abs_err"
+        f" {tp_err:.3g}, {tp_ms:.3f} ms vs plain {tp_plain_ms:.3f} ms, bound"
+        f" {tp_bound['bound_ms']:.3f} ms ({tp_bound['bound_by']}) | "
+        + card_line())
 
     rel = randn(cfg.rel_buckets, cfg.num_heads, scale=0.1)
 
@@ -2238,6 +2274,524 @@ def run_other_encoders(seed):
     log(f"phase 11 done in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------- phase 12
+# phase 12 (b): two gloo ranks sharing the card, the same indexes at a
+# smaller depth; the encoder at ProtT5-XL width on SHARD_PROTEINS proteins of
+# the length mix plus one above blockwise_above (kernel H's route)
+SHARD_ROWS, SHARD_QUERIES, SHARD_PROTEINS, SHARD_LONG = 32768, 1024, 64, 1500
+# (a)'s IVF: the pipeline's nprobe; (b)'s IVF covers every cell of its
+# shard, so its top-10 is the exact one (the dry run's golden)
+SHARD_NPROBE = 32
+# (d): pairs of the main path's mix, each test protein against its family's
+# first train member
+PAIRS = N_TEST
+
+
+def kernel_counters():
+    """Every kernel's launch count, by letter."""
+    from knn_for_homology_tpu_torch.ops import (
+        align_cuda,
+        exact_cuda,
+        ffn_cuda,
+        flash_cuda,
+        flat_cuda,
+        ivf_cuda,
+        packed_cuda,
+        short_cuda,
+        slab_cuda,
+    )
+
+    plain = {"A": flat_cuda.flat_topk_kernel,
+             "B": exact_cuda.segment_topr_kernel,
+             "C": align_cuda.sw_scores_grouped, "G": ffn_cuda.fused_ffn_t5,
+             "H": flash_cuda.flash_attention_t5,
+             "I": short_cuda.short_attention_t5,
+             "J": ivf_cuda.segment_packed_indirect_kernel,
+             "K": slab_cuda.beam_expand}
+    return plain, packed_cuda.segment_packed_kernel.launches
+
+
+def reset_kernel_counts():
+    plain, packed = kernel_counters()
+    for fn in plain.values():
+        fn.launches = 0
+    for key in packed:
+        packed[key] = 0
+
+
+def read_kernel_counts() -> dict:
+    plain, packed = kernel_counters()
+    out = {key: fn.launches for key, fn in plain.items()}
+    out.update(packed)
+    return {key: out[key] for key in "ABCDEFGHIJK"}
+
+
+def recall_at(ids, exact_ids, k=10):
+    return float(np.mean([len(set(a[:k]) & set(b[:k])) / k
+                          for a, b in zip(ids, exact_ids)]))
+
+
+def tokens_of(batch, dev):
+    """(ids, mask, residue mask) of one batch, as ProtT5Embedder builds
+    them: EOS kept in the mask, dropped from the pooling."""
+    import torch
+
+    from knn_for_homology_tpu_torch.models import t5
+    from knn_for_homology_tpu_torch.models.batching import pad_tokens
+
+    ids, mask = pad_tokens([t5.tokenize(s) for s in batch.sequences],
+                           batch.padded_len, t5.PAD_ID)
+    res = mask.copy()
+    for row, seq in enumerate(batch.sequences):
+        res[row, len(seq):] = False
+    return [torch.from_numpy(a).to(dev) for a in (ids, mask, res)]
+
+
+def sharded_rank(data_dir, seqs, seed):
+    """Phase 12 (b) (and scripts/torch_multichip.py), one rank of the
+    group: the sharded indexes over the rows in `data_dir` (a shard a
+    rank; the IVF probes every cell of its shard), then encode_sharded at
+    ProtT5-XL width, the heads and d_ff split over every rank. Returns its
+    results, seconds and kernel launches (counted from zero here)."""
+    import torch
+    import torch.distributed as dist
+
+    from knn_for_homology_tpu_torch.models import t5
+    from knn_for_homology_tpu_torch.models.batching import make_batches
+    from knn_for_homology_tpu_torch.models.pooling import mean_pool
+    from knn_for_homology_tpu_torch.ops.distance import l2_normalize
+    from knn_for_homology_tpu_torch.parallel import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        ShardedFlatIndex,
+        ShardedGraphIndex,
+        ShardedIVFIndex,
+        ShardedLSHIndex,
+        db_sharded_topk,
+        make_mesh,
+        make_pod_mesh,
+    )
+    from knn_for_homology_tpu_torch.parallel.encoder_sharding import (
+        encode_sharded,
+        shard_t5_params,
+    )
+
+    dev = torch.device("cuda")
+    db = np.load(Path(data_dir) / "db.npy")
+    q = np.load(Path(data_dir) / "q.npy")
+    world = dist.get_world_size()
+    mesh, pod = make_mesh(world), make_pod_mesh(n_ici=world, n_dcn=1)
+    cover = -(-2 * -(-db.shape[0] // world) // 128)  # the cells of a shard
+    reset_kernel_counts()
+    out, secs = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        out[name] = res
+
+    dbn = l2_normalize(torch.from_numpy(db).to(dev))
+    qn = l2_normalize(torch.from_numpy(q).to(dev))
+    timed("db_sharded", lambda: tuple(a.cpu().numpy() for a in db_sharded_topk(
+        dbn, qn, BENCH_K, mesh, metric="ip")))
+    timed("flat", lambda: ShardedFlatIndex(pod, device=dev).add(db).search(
+        q, BENCH_K)[1])
+    timed("ivf_probe", lambda: ShardedIVFIndex(
+        mesh, nprobe=cover, device=dev).build(db).search(q, 10))
+    timed("ivf_union", lambda: ShardedIVFIndex(
+        mesh, nprobe=cover, union_budget=cover,
+        device=dev).build(db).search(q, 10))
+    timed("graph", lambda: ShardedGraphIndex(mesh, device=dev).build(
+        db).search(q, 10)[1])
+    timed("lsh", lambda: ShardedLSHIndex(mesh, DIM, LSH_BITS, device=dev).add(
+        db).finalize().search(q, BENCH_K))
+
+    tp = make_mesh(world, axis_names=(DATA_AXIS, MODEL_AXIS),
+                   shape=(1, world))
+    config = t5.PROTT5_XL
+    full = t5.init_params(config, seed=seed, device=dev)
+    local = shard_t5_params(full, tp)
+    del full
+    torch.cuda.empty_cache()
+    pooled = np.zeros((len(seqs), config.d_model), np.float32)
+
+    def encode():
+        for batch in make_batches(seqs, TOKEN_BUDGET):
+            ids, mask, res = tokens_of(batch, dev)
+            hidden = encode_sharded(local, ids, mask, config, tp)
+            pooled[batch.indices] = mean_pool(hidden, res).float().cpu().numpy()
+        return pooled
+
+    timed("encode", encode)
+    return {"out": out, "secs": secs, "launches": read_kernel_counts(),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def encoder_proteins(test_seqs, seed):
+    """SHARD_PROTEINS - 1 proteins of the length mix and one of SHARD_LONG
+    aa, above blockwise_above (kernel H's route)."""
+    from knn_for_homology_tpu_torch.models import t5
+
+    rng = np.random.RandomState(seed + 12)
+    seqs = list(rng.choice(np.asarray(test_seqs, dtype=object),
+                           SHARD_PROTEINS - 1, replace=False))
+    seqs.append(AAS[rng.randint(0, 20, SHARD_LONG)].tobytes().decode())
+    assert max(map(len, seqs)) > t5.PROTT5_XL.blockwise_above
+    return seqs
+
+
+def shard_graph_ref(dbn, qn, world, k=10):
+    """ShardedGraphIndex's golden over `world` shards without pad rows:
+    each shard's own GraphIndex search, merged by (score descending, lower
+    global id), the sharded merge's order."""
+    from knn_for_homology_tpu_torch.search.graph import GraphIndex
+
+    n = dbn.shape[0]
+    assert n % world == 0, f"{n} rows do not split into {world} even shards"
+    rows = n // world
+    q = qn.cpu().numpy()
+    sims, ids = [], []
+    for s in range(world):
+        sv, iv = GraphIndex(metric="ip", device=dbn.device).add(
+            dbn[s * rows : (s + 1) * rows].cpu().numpy()).search(q, k)
+        sims.append(sv)
+        ids.append(np.where(iv >= 0, iv + s * rows, -1))
+    sims, ids = np.concatenate(sims, 1), np.concatenate(ids, 1)
+    order = np.lexsort((ids, -sims), axis=1)[:, :k]
+    return np.take_along_axis(ids, order, 1)
+
+
+def rank_refs(db, q, enc_seqs, seed, world):
+    """The unsharded counterparts of sharded_rank's results on `world`
+    ranks, on the card: the exact top-k (kernel B), the LSH index, the
+    per-shard graph searches' merge and the T5Encoder's pooled vectors
+    (the same seeded weights)."""
+    import torch
+
+    from knn_for_homology_tpu_torch.models import t5
+    from knn_for_homology_tpu_torch.models.registry import ProtT5Embedder
+    from knn_for_homology_tpu_torch.ops import exact_cuda
+    from knn_for_homology_tpu_torch.ops.distance import l2_normalize
+    from knn_for_homology_tpu_torch.search.lsh import LSHIndex
+
+    dev = torch.device("cuda")
+    dbn = l2_normalize(torch.from_numpy(db).to(dev))
+    qn = l2_normalize(torch.from_numpy(q).to(dev))
+    embedder = ProtT5Embedder(config=t5.PROTT5_XL, params=t5.init_params(
+        t5.PROTT5_XL, seed=seed, device=dev), token_budget=TOKEN_BUDGET,
+        device=dev)
+    refs = dict(
+        db=db, q=q, dbn=dbn, qn=qn, proteins=enc_seqs,
+        exact=exact_cuda.exact_topk(dbn, qn, BENCH_K, metric="ip"),
+        lsh=LSHIndex(DIM, LSH_BITS, device=dev).add(db).search(q, BENCH_K),
+        graph=shard_graph_ref(dbn, qn, world),
+        pooled=embedder.embed_pooled(enc_seqs),
+    )
+    del embedder
+    torch.cuda.empty_cache()
+    return refs
+
+
+def rank_data(tmp: Path, refs) -> str:
+    """The rows and queries of sharded_rank, saved for its processes."""
+    data_dir = tmp / "shard_data"
+    data_dir.mkdir()
+    np.save(data_dir / "db.npy", refs["db"])
+    np.save(data_dir / "q.npy", refs["q"])
+    return str(data_dir)
+
+
+def check_ranks(tag, ranks, refs, wall, card) -> dict:
+    """sharded_rank's results held to the unsharded counterparts (the dry
+    run's goldens): db-sharded and flat ids of the exact top-k, the IVF at
+    a covering nprobe and budget the exact top-10, the graph's ids those of
+    the per-shard GraphIndex searches' merge, LSH bit-equal, the
+    tensor-parallel encoder within phase 8's bound; near-tie swaps (within
+    SCORE_ATOL, fp64-checked) counted. Returns the launches of all ranks."""
+    import torch
+
+    dbn, qn, exact = refs["dbn"], refs["qn"], refs["exact"]
+    r0 = ranks[0]
+    for other in ranks[1:]:
+        for key in ("flat", "graph"):
+            assert np.array_equal(other["out"][key], r0["out"][key]), key
+    swaps = {}
+    got = tuple(torch.from_numpy(a).to(dbn.device)
+                for a in r0["out"]["db_sharded"])
+    _, swaps["db_sharded"] = check_topk(f"{tag} db_sharded", got, exact,
+                                        dbn, qn)
+    assert np.array_equal(r0["out"]["flat"], r0["out"]["db_sharded"][1])
+    # the covering IVF's fp32 rescore (bmm) and B's 3xTF32 products may
+    # order near-ties apart
+    top10 = (exact[0][:, :10].contiguous(), exact[1][:, :10].contiguous())
+    for key in ("ivf_probe", "ivf_union"):
+        got = tuple(torch.from_numpy(a).to(dbn.device) for a in r0["out"][key])
+        _, swaps[key] = check_topk(f"{tag} {key}", got, top10, dbn, qn)
+    assert np.array_equal(r0["out"]["graph"], refs["graph"]), (
+        f"{tag}: ShardedGraphIndex ids differ from the per-shard merge")
+    assert np.array_equal(r0["out"]["lsh"][1], refs["lsh"][1])
+    assert np.array_equal(r0["out"]["lsh"][0], refs["lsh"][0])
+    pooled = r0["out"]["encode"]
+    assert pooled.shape == refs["pooled"].shape and np.isfinite(pooled).all()
+    cos, rel = check_pooled(f"{tag} encode_sharded", pooled, refs["pooled"])
+    launches = {key: sum(r["launches"][key] for r in ranks)
+                for key in "ABCDEFGHIJK"}
+    for key in "BJKGH":
+        assert launches[key] > 0, f"{tag}: kernel {key} not launched"
+    n, world = len(refs["db"]), len(ranks)
+    residues = sum(len(s) for s in refs["proteins"])
+    heads, d_ff = 32 // world, 16384 // world
+    log(f"{tag}, {world} ranks, {n} x {DIM}, {len(refs['q'])} queries |"
+        f" {card} | wall {wall:.1f} s (spawn and CUDA start included) |"
+        " rank 0 seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r0["secs"].items())
+        + f" | db_sharded / ShardedFlatIndex ids equal to exact_topk but"
+        f" {swaps['db_sharded']} near-tie swaps; IVF per-probe and union"
+        f" (nprobe = budget = every cell of a shard) top-10 equal to the"
+        f" exact top-10 but {swaps['ivf_probe']} and {swaps['ivf_union']}"
+        f" near-tie swaps; LSH bit-equal to LSHIndex; graph ids equal to"
+        f" the merge of {world} per-shard GraphIndex searches, recall@10"
+        f" {recall_at(r0['out']['graph'], exact[1][:, :10].cpu().numpy()):.4f}"
+        f" | encode_sharded ProtT5-XL, {heads} heads and d_ff {d_ff} a rank,"
+        f" {len(pooled)} proteins ({residues} residues, longest"
+        f" {max(map(len, refs['proteins']))}):"
+        f" {residues / r0['secs']['encode']:.0f} residues/s; pooled vs the"
+        f" unsharded T5Encoder: cosine min {cos:.6f}, relative L2 max"
+        f" {rel.max():.4g} (bound: cosine >= {ENC_MIN_COSINE}, relative L2"
+        f" <= {ENC_MAX_REL_ERR}) | peak {r0['peak'] / 2**30:.2f} GiB a rank"
+        f" | launches (all ranks) {launches}")
+    return launches
+
+
+def run_sharded(train, test, train_seqs, test_seqs, kernels, seed, tmp):
+    """Phase 12: the sharded path (parallel/). (a) one NCCL rank in this
+    process at full width over phase 4's vectors; (b) two gloo ranks
+    sharing the card (sharded_rank); (c) dryrun_multichip(2) on gloo; (d)
+    sw_scores / align_pairs through kernel C. Unsharded counterparts are
+    computed before the counts are reset."""
+    import torch
+
+    from knn_for_homology_tpu_torch.entry import dryrun_multichip
+    from knn_for_homology_tpu_torch.ops import align as align_ops
+    from knn_for_homology_tpu_torch.ops import align_cuda, exact_cuda
+    from knn_for_homology_tpu_torch.ops.distance import l2_normalize
+    from knn_for_homology_tpu_torch.ops.packed_cuda import packed_topk
+    from knn_for_homology_tpu_torch.parallel import (
+        ShardedFlatIndex,
+        ShardedGraphIndex,
+        ShardedIVFIndex,
+        ShardedLSHIndex,
+        db_sharded_topk,
+        make_mesh,
+        make_pod_mesh,
+    )
+    from knn_for_homology_tpu_torch.parallel.mesh import process_group, spawn
+    from knn_for_homology_tpu_torch.parallel.scale import ShardSweep
+    from knn_for_homology_tpu_torch.search.graph import GraphIndex
+    from knn_for_homology_tpu_torch.search.ivf import IVFIndex
+    from knn_for_homology_tpu_torch.search.lsh import LSHIndex
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    card = card_line()
+    db = l2_normalize(torch.from_numpy(train).to(dev)).contiguous()
+    qn = l2_normalize(torch.from_numpy(test).to(dev)).contiguous()
+    n_a = N_TRAIN - 1  # (a)'s flat search leaves one pad row in its shard
+    sweep_half = SHARD_ROWS // 2
+
+    # ---- the unsharded counterparts (their launches are not phase 12's)
+    ref_exact = exact_cuda.exact_topk(db[:n_a], qn, BENCH_K, metric="ip")
+    top10 = ref_exact[1][:, :10].cpu().numpy()
+    ref_sq8 = packed_topk(db, qn, BENCH_K, metric="ip", storage="sq8-sym")
+    ivf = IVFIndex(metric="ip", nprobe=SHARD_NPROBE, kmeans_iters=16,
+                   device=dev).add(db.cpu().numpy())
+    ref_probe = ivf.search(qn[:256].cpu().numpy(), 10)
+    ref_union = ivf.search(qn[:1024].cpu().numpy(), 10,
+                           union_budget=ivf._centroids.shape[0])
+    del ivf
+    graph = GraphIndex(metric="ip", device=dev).add(db.cpu().numpy())
+    ref_graph = graph.search(qn.cpu().numpy(), BENCH_K)
+    del graph
+    ref_lsh = LSHIndex(DIM, LSH_BITS, device=dev).add(train).search(
+        test, BENCH_K)
+    halves = [train[:sweep_half], train[sweep_half:SHARD_ROWS]]
+    parts = [GraphIndex(device=dev, iters=8).add(h).search(test, 10)
+             for h in halves]
+    cand_s = np.concatenate([parts[0][0], parts[1][0]], 1)
+    cand_i = np.concatenate([parts[0][1], parts[1][1] + sweep_half], 1)
+    ref_sweep = np.take_along_axis(
+        cand_i, np.argsort(-cand_s, axis=1, kind="stable")[:, :10], 1)
+    enc_seqs = encoder_proteins(test_seqs, seed)
+    refs = rank_refs(train[:SHARD_ROWS], test[:SHARD_QUERIES], enc_seqs,
+                     seed, world=2)
+    log(f"phase 12 unsharded counterparts in {time.perf_counter() - t_phase:.1f}"
+        " s")
+
+    # ---- (a) one NCCL rank, full width, counts from zero
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    secs, res = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    with process_group("nccl"):
+        mesh, pod = make_mesh(1), make_pod_mesh(n_ici=1, n_dcn=1)
+        # all 131072 rows, n_valid 131071: kernel B masks the pad row
+        timed("db_sharded", lambda: db_sharded_topk(
+            db, qn, BENCH_K, mesh, metric="ip", n_valid=n_a))
+        b_live = exact_cuda.segment_topr_kernel.launches
+        # again, the group's communicator set up by the first call
+        timed("db_sharded_warm", lambda: db_sharded_topk(
+            db, qn, BENCH_K, mesh, metric="ip", n_valid=n_a))
+        timed("flat", lambda: ShardedFlatIndex(mesh, device=dev).add(
+            train[:n_a]).search(test, BENCH_K))
+        timed("flat_sq8", lambda: ShardedFlatIndex(
+            mesh, storage="sq8-sym", device=dev).add(train).search(
+                test, BENCH_K))
+        timed("ivf_probe", lambda: ShardedIVFIndex(
+            mesh, nprobe=SHARD_NPROBE, device=dev).build(train).search(
+                test[:256], 10))
+        timed("ivf_union", lambda: ShardedIVFIndex(
+            mesh, nprobe=SHARD_NPROBE, union_budget=N_TRAIN, device=dev
+        ).build(train).search(test[:1024], 10))
+        timed("graph", lambda: ShardedGraphIndex(pod, device=dev).build(
+            train).search(test, BENCH_K))
+        timed("lsh", lambda: ShardedLSHIndex(
+            mesh, DIM, LSH_BITS, device=dev).add(train).finalize().search(
+                test, BENCH_K))
+
+        def sweep():
+            sw = ShardSweep(Path(tmp) / "sweep", iters=8, device=dev)
+            build = [sw.build_shard(h) for h in halves]
+            return build, sw.search(test, 10)
+
+        timed("sweep", sweep)
+    launches_a = read_kernel_counts()
+    assert b_live > 0, "(a): kernel B did not run with a live n_valid mask"
+    # db_sharded's split (not launches of the path): its shard-local call
+    # alone at the traced plan, and exact_topk at the default plan
+    timed("local_traced", lambda: exact_cuda.exact_topk_traced(
+        db, qn, BENCH_K, metric="ip", n_valid=n_a))
+    timed("local_default", lambda: exact_cuda.exact_topk(
+        db, qn, BENCH_K, metric="ip", n_valid=n_a))
+    tile = exact_cuda.default_db_tile(BENCH_K)
+    plans = {t: exact_cuda.plan(N_TRAIN, BENCH_K, tile, exact_row_target=t)
+             for t in (1e-6, 3e-3)}
+    for key in "BFJK":
+        assert launches_a[key] > 0, f"phase 12 (a): kernel {key} not launched"
+
+    swaps = {}
+    got = res["db_sharded"]
+    _, swaps["db_sharded"] = check_topk("12a db_sharded", got, ref_exact,
+                                        db, qn)
+    assert int(got[1].max()) < n_a
+    flat = tuple(torch.from_numpy(a).to(dev) for a in res["flat"])
+    _, swaps["flat"] = check_topk("12a ShardedFlatIndex", flat, ref_exact,
+                                  db, qn)
+    assert np.array_equal(res["flat_sq8"][1], ref_sq8[1].cpu().numpy())
+    assert np.array_equal(res["ivf_probe"][1], ref_probe[1])
+    assert np.array_equal(res["ivf_union"][1], ref_union[1])
+    assert np.array_equal(res["graph"][1], ref_graph[1])
+    assert np.array_equal(res["lsh"][1], ref_lsh[1])
+    assert np.array_equal(res["lsh"][0], ref_lsh[0])
+    build_s, (sweep_s, sweep_i, shard_s) = res["sweep"]
+    assert np.array_equal(sweep_i, ref_sweep)
+    recalls = {
+        "flat": recall_at(res["flat"][1], top10),
+        "flat sq8-sym": recall_at(res["flat_sq8"][1], top10),
+        "ivf per-probe": recall_at(res["ivf_probe"][1], top10[:256]),
+        "ivf union": recall_at(res["ivf_union"][1], top10[:1024]),
+        "graph": recall_at(res["graph"][1], top10),
+        "lsh": recall_at(res["lsh"][1], top10),
+    }
+    log(f"phase 12 (a) one NCCL rank, {N_TRAIN} x {DIM}, {N_TEST} queries |"
+        f" {card} | db_sharded k={BENCH_K} (n_valid {n_a}: kernel B's live"
+        f" mask) {secs['db_sharded']:.3f} s, again"
+        f" {secs['db_sharded_warm']:.3f} s; its shard-local"
+        f" exact_topk_traced alone (W, R {plans[1e-6]})"
+        f" {secs['local_traced']:.3f} s, exact_topk at the default plan"
+        f" (W, R {plans[3e-3]}) {secs['local_default']:.3f} s; ids equal"
+        f" to the unsharded exact_topk but {swaps['db_sharded']} near-tie"
+        " swaps;"
+        f" ShardedFlatIndex ({n_a} rows) {secs['flat']:.3f} s, but"
+        f" {swaps['flat']} near-tie swaps; sq8-sym (F)"
+        f" {secs['flat_sq8']:.3f} s, ids equal to packed_topk; IVF per-probe"
+        f" (K, 256 q, k=10) {secs['ivf_probe']:.3f} s and union (J, 1024 q,"
+        f" every cell) {secs['ivf_union']:.3f} s incl. builds, ids equal to"
+        f" IVFIndex; graph (B build, K) {secs['graph']:.3f} s incl. build,"
+        f" ids equal to GraphIndex; LSH {secs['lsh']:.3f} s, bit-equal to"
+        f" LSHIndex; ShardSweep 2 x {sweep_half} graph shards: builds"
+        f" {', '.join(f'{b:.3f}' for b in build_s)} s, shard searches"
+        f" {', '.join(f'{s:.3f}' for s in shard_s)} s, ids equal to the"
+        f" in-memory shards' merge | recall@10 vs flat exact: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in recalls.items())
+        + f" | launches {launches_a}")
+
+    # ---- (b) two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_rank, 2, device="cuda", backend="gloo",
+                  args=(rank_data(Path(tmp), refs), enc_seqs, seed))
+    launches_b = check_ranks("phase 12 (b) two gloo ranks on one card",
+                             ranks, refs, time.perf_counter() - t0, card)
+
+    # ---- (c) the dry run, two gloo ranks on the card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device="cuda", backend="gloo")
+    log(f"phase 12 (c) dryrun_multichip(2, cuda, gloo): {dry['steps']} steps"
+        f" held to their goldens in {time.perf_counter() - t0:.1f} s"
+        f" (encoder vs unsharded max |diff| {dry['encoder_max_abs']:.3g},"
+        " bf16) | " + card)
+
+    # ---- (d) pair alignment through kernel C
+    queries = list(test_seqs[:PAIRS])
+    targets = [train_seqs[i * FAMILY_TRAIN] for i in range(PAIRS)]
+    cells = float(sum(len(a) * len(b) for a, b in zip(queries, targets)))
+    align_cuda.sw_scores_grouped.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, evs = align_ops.align_pairs(queries, targets, device="cuda")
+    pairs_s = time.perf_counter() - t0
+    c_launches = align_cuda.sw_scores_grouped.launches
+    assert c_launches > 0 and np.isfinite(evs).all() and scores.max() > 0
+    lq = max(256, -(-max(map(len, queries)) // 256) * 256)
+    lt = max(256, -(-max(map(len, targets)) // 256) * 256)
+    qd = torch.from_numpy(np.stack([align_ops.encode_sequence(s, lq)
+                                    for s in queries])).to(dev)
+    td = torch.from_numpy(np.stack([align_ops.encode_sequence(s, lt)
+                                    for s in targets])).to(dev)
+    half = PAIRS // 2  # align_pairs' batches of 2048 pairs
+    k_out = torch.cat([align_ops.sw_scores(qd[s:s + half], td[s:s + half],
+                                           convention="mmseqs")
+                       for s in (0, half)])
+    p_out = torch.cat([align_cuda.sw_scores_grouped_plain(
+        qd[s:s + half], td[s:s + half, None, :], convention="mmseqs")[:, 0]
+        for s in (0, half)])
+    assert torch.equal(k_out, p_out), "C: sw_scores differs from plain"
+    assert np.array_equal(scores, k_out.cpu().numpy())
+    ms = cuda_ms(lambda: [align_ops.sw_scores(qd[s:s + half], td[s:s + half])
+                          for s in (0, half)], reps=3)
+    log(f"phase 12 (d) align_pairs: {PAIRS} pairs of the main path's mix"
+        f" ({cells:.4g} real cells) in {pairs_s:.3f} s, {c_launches} C"
+        f" launches; sw_scores (K = 1) bit-equal to plain; kernel C"
+        f" {ms:.3f} ms for both batches ({cells / ms / 1e6:.1f} GCUPS) | "
+        + card)
+
+    launches = {key: launches_a[key] + launches_b[key] for key in launches_a}
+    launches["C"] += c_launches
+    for key, entry in kernels.items():
+        entry.setdefault("launches_by_phase", {})["12"] = launches[key]
+    log(f"phase 12 done in {time.perf_counter() - t_phase:.1f} s | launches"
+        f" {launches}")
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2509,9 +3063,15 @@ def main() -> None:
     smoke_dir.cleanup()
 
     # ---- phase 11: the other encoder families
-    del train, test
     torch.cuda.empty_cache()
     run_other_encoders(args.seed)
+
+    # ---- phase 12: the sharded path, on phase 4's vectors
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="knn_shard_") as tmp:
+        run_sharded(train, test, train_seqs, test_seqs, kernels, args.seed,
+                    tmp)
+    del train, test
 
     log(card)
     print(json.dumps({"kernels": [kernels[k] for k in "ABCDEFGHIJK"]}))

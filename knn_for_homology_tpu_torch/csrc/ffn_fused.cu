@@ -20,8 +20,9 @@
 // wrapper (229 MB at T = 7000; its write and read, 458 MB, take ~0.14 ms at
 // 3.35 TB/s, under a third of the product bound):
 //   1. rms_norm_kernel writes normed [T, D] bf16, one warp a row;
-//   2. gemm_kernel<RELU>: h = bf16(relu(normed . wi));
-//   3. gemm_kernel<RESIDUAL>: out = bf16(x32 + h . wo).
+//   2. gemm_kernel<kRelu>: h = bf16(relu(normed . wi));
+//   3. gemm_kernel<kResidual>: out = bf16(x32 + h . wo), or with the
+//      residual flag off gemm_kernel<kPlain>: out = bf16(h . wo).
 // The GEMM: a block computes a BM x BN = 128 x 256 tile (128 for N = 128)
 // with two consumer warpgroups of 64 rows (wgmma m64n128k16 bf16 -> fp32,
 // A K-major, B [K, N] row-major read MN-major through the descriptor's
@@ -51,6 +52,7 @@ constexpr int BM = 128;               // rows per block: two warpgroups
 constexpr int BK = 64;                // k per stage: one 128-byte row
 constexpr int THREADS = 2 * 128 + 32;  // consumers + the producer warp
 constexpr int A_BYTES = BM * BK * 2;  // 16 KB
+enum { kRelu, kResidual, kPlain };     // the GEMM epilogues
 
 template <int BN>
 struct Gemm {
@@ -121,12 +123,13 @@ rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln,
   }
 }
 
-// out[M, N] = epilogue(A[M, K] . B[K, N]); RESIDUAL: bf16(x32 + acc), else
-// bf16(relu(acc)). a_map: 2-d {K, M}, boxes of 64 x BM; b_map: 3-d {64, K,
+// out[M, N] = epilogue(A[M, K] . B[K, N]); EPI: kRelu bf16(relu(acc)),
+// kResidual bf16(x32 + acc), kPlain bf16(acc) (the block's partial sum
+// under tensor parallelism: the caller adds x once after the all-reduce). a_map: 2-d {K, M}, boxes of 64 x BM; b_map: 3-d {64, K,
 // N / 64}, boxes of 64 x BK x BN / 64 ([BN / 64][BK][64] in shared memory).
 // The card charges a block registers by whole warpgroups: 288 threads cost
 // as 384, so 168 registers a thread fit one block per SM.
-template <int BN, bool RESIDUAL>
+template <int BN, int EPI>
 __global__ void __maxnreg__(168)
 gemm_kernel(const __grid_constant__ CUtensorMap a_map,
             const __grid_constant__ CUtensorMap b_map,
@@ -233,12 +236,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map,
           const size_t idx = (size_t)row * n + col;
           float v0 = acc[nb][4 * j + 2 * half];
           float v1 = acc[nb][4 * j + 2 * half + 1];
-          if (RESIDUAL) {
+          if (EPI == kResidual) {
             const __nv_bfloat162 xv =
                 *reinterpret_cast<const __nv_bfloat162*>(x + idx);
             v0 = __bfloat162float(xv.x) + v0;
             v1 = __bfloat162float(xv.y) + v1;
-          } else {
+          } else if (EPI == kRelu) {
             v0 = fmaxf(v0, 0.0f);
             v1 = fmaxf(v1, 0.0f);
           }
@@ -269,13 +272,13 @@ bool map_b(CUtensorMap* map, const void* ptr, int k, int n, int bn) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, bool RESIDUAL>
+template <int BN, int EPI>
 cudaError_t gemm(const bf16* a, const bf16* b, const bf16* x, bf16* out,
                  int m, int n, int k, cudaStream_t stream) {
   CUtensorMap a_map, b_map;
   if (!map_a(&a_map, a, m, k) || !map_b(&b_map, b, k, n, BN))
     return cudaErrorInvalidValue;
-  auto kernel = gemm_kernel<BN, RESIDUAL>;
+  auto kernel = gemm_kernel<BN, EPI>;
   const int smem = (int)Gemm<BN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -296,34 +299,37 @@ cudaError_t gemm(const bf16* a, const bf16* b, const bf16* x, bf16* out,
 }
 
 // the widest tile the output's N fills
-template <bool RESIDUAL>
+template <int EPI>
 cudaError_t gemm_any(const bf16* a, const bf16* b, const bf16* x, bf16* out,
                      int m, int n, int k, cudaStream_t stream) {
   if (n >= 256)
-    return gemm<256, RESIDUAL>(a, b, x, out, m, n, k, stream);
-  return gemm<128, RESIDUAL>(a, b, x, out, m, n, k, stream);
+    return gemm<256, EPI>(a, b, x, out, m, n, k, stream);
+  return gemm<128, EPI>(a, b, x, out, m, n, k, stream);
 }
 
 template <int D>
 cudaError_t launch(const bf16* x, const bf16* ln, const bf16* wi,
                    const bf16* wo, bf16* normed, bf16* h, bf16* out, int t_n,
-                   int f_n, float eps, cudaStream_t stream) {
+                   int f_n, float eps, bool residual, cudaStream_t stream) {
   rms_norm_kernel<D><<<(t_n + 7) / 8, 256, 0, stream>>>(x, ln, normed, t_n,
                                                         eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = gemm_any<false>(normed, wi, nullptr, h, t_n, f_n, D, stream);
+  err = gemm_any<kRelu>(normed, wi, nullptr, h, t_n, f_n, D, stream);
   if (err != cudaSuccess) return err;
-  return gemm_any<true>(h, wo, x, out, t_n, D, f_n, stream);
+  if (!residual) return gemm_any<kPlain>(h, wo, nullptr, out, t_n, D, f_n, stream);
+  return gemm_any<kResidual>(h, wo, x, out, t_n, D, f_n, stream);
 }
 
 }  // namespace
 
 // x [t, d], ln [d], wi [d, f], wo [f, d], out [t, d] bf16; normed [t, d]
 // and h [t, f] bf16 scratch. d in {128, 256, 512, 1024}, f % 128 == 0.
+// residual 0 leaves x out of the sum (tensor parallelism: each rank's
+// partial block, summed across ranks before x is added once).
 extern "C" int knn_ffn_fused(const void* x, const void* ln, const void* wi,
                              const void* wo, void* normed, void* h, void* out,
-                             int t_n, int d, int f_n, float eps,
+                             int t_n, int d, int f_n, float eps, int residual,
                              cudaStream_t stream) {
   if (t_n < 1 || f_n < 128 || f_n % 128 != 0) return (int)cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
@@ -335,13 +341,17 @@ extern "C" int knn_ffn_fused(const void* x, const void* ln, const void* wi,
   bf16* ob = static_cast<bf16*>(out);
   switch (d) {
     case 128:
-      return (int)launch<128>(xb, lb, wib, wob, nb, hb, ob, t_n, f_n, eps, stream);
+      return (int)launch<128>(xb, lb, wib, wob, nb, hb, ob, t_n, f_n, eps,
+                              residual != 0, stream);
     case 256:
-      return (int)launch<256>(xb, lb, wib, wob, nb, hb, ob, t_n, f_n, eps, stream);
+      return (int)launch<256>(xb, lb, wib, wob, nb, hb, ob, t_n, f_n, eps,
+                              residual != 0, stream);
     case 512:
-      return (int)launch<512>(xb, lb, wib, wob, nb, hb, ob, t_n, f_n, eps, stream);
+      return (int)launch<512>(xb, lb, wib, wob, nb, hb, ob, t_n, f_n, eps,
+                              residual != 0, stream);
     case 1024:
-      return (int)launch<1024>(xb, lb, wib, wob, nb, hb, ob, t_n, f_n, eps, stream);
+      return (int)launch<1024>(xb, lb, wib, wob, nb, hb, ob, t_n, f_n, eps,
+                              residual != 0, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

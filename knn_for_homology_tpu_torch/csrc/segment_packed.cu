@@ -125,6 +125,7 @@ struct Params {
   const float* db;
   int* buf;
   int q_n, n, d, w, r, jbits;
+  int nv;  // columns >= nv never enter (min(n, n_valid)); passes are n's
   bool l2, global_slots;
 };
 
@@ -169,7 +170,7 @@ segment_packed(const Params p) {
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int jl = tx * TN + j;
-        if (b0 + jl >= p.n) continue;  // columns past n never enter
+        if (b0 + jl >= p.nv) continue;  // columns past nv never enter
         const float sim = knn::tile_sim<TM, TN>(s, acc[i][j], il, jl, p.l2);
         const int cand = (knn::ordered_int(sim) & ~jmax) | (jmax - pass);
         if (cand <= kept_min[i][j]) continue;
@@ -255,6 +256,7 @@ struct MmaParams {
   const int* ids;       // J: [C*128] packed ids, -1 padding
   int* buf;
   int q_n, n, d, w, r, jbits;
+  int nv;  // D, E, F: columns >= nv never enter (J: nv = n)
   bool l2;
   // the launch's plan (plan_for): db boxes along d a pass, ring stages and
   // their bytes, bytes of the resident query rows, slots in device memory
@@ -587,7 +589,7 @@ segment_packed_mma(const __grid_constant__ CUtensorMap q_map,
           sc[j][h] = p.scales[row0 + jl];
           ok[j][h] = p.ids[row0 + jl] >= 0;
         } else {
-          ok[j][h] = c0 + jl < p.n;
+          ok[j][h] = c0 + jl < p.nv;
           sc[j][h] = V != kBF16 && ok[j][h] ? p.scales[c0 + jl] : 1.f;
         }
         dsq[j][h] = V < kSym && p.l2 && ok[j][h] ? p.d_sq[c0 + jl] : 0.f;
@@ -817,11 +819,13 @@ cudaError_t launch_any(const void* q, const void* q_lo, const void* db,
 // d counts columns; every variant but fp32 D needs d % 16 == 0 (TMA rows
 // of whole 16 bytes). norms: [q_n + n] f32 scratch for l2 with D bf16 and
 // E (the squared norms of the queries, then of the db rows), else unused.
+// Columns >= n_valid never enter a slot (a shard's pad rows); the passes
+// and jbits stay those of all n rows, as the reference plans them.
 extern "C" int knn_segment_packed(const void* q, const void* q_lo,
                                   const void* db, const float* scales,
                                   float* norms, int* buf, int q_n, int n,
-                                  int d, int w, int r, int jbits, int variant,
-                                  int l2, cudaStream_t stream) {
+                                  int n_valid, int d, int w, int r, int jbits,
+                                  int variant, int l2, cudaStream_t stream) {
   const bool sq8 = variant >= kSQ8, sym = variant >= kSym;
   if (w < 64 || w % 64 != 0 || r < 1 || q_n < 1 || n < 1 || d < 1 ||
       jbits < 1 || jbits > 30 || variant < kF32 || variant > kSym2 ||
@@ -829,15 +833,17 @@ extern "C" int knn_segment_packed(const void* q, const void* q_lo,
       (sym && l2) || (variant != kF32 && d % 16 != 0) ||
       (l2 && (variant == kBF16 || variant == kSQ8) && norms == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int nv = n_valid < 0 ? 0 : (n_valid < n ? n_valid : n);
   if (variant == kF32) {
     const Params p{static_cast<const float*>(q), static_cast<const float*>(db),
-                   buf, q_n, n, d, w, r, jbits, l2 != 0, false};
+                   buf, q_n, n, d, w, r, jbits, nv, l2 != 0, false};
     return (int)launch_f32(p, stream);
   }
   mma::MmaParams p{};
   p.scales = scales;
   p.buf = buf;
   p.q_n = q_n, p.n = n, p.d = d, p.w = w, p.r = r, p.jbits = jbits;
+  p.nv = nv;
   p.l2 = l2 != 0;
   if (p.l2) {
     p.q_sq = norms;
@@ -883,6 +889,7 @@ extern "C" int knn_ivf_indirect(const void* q, const void* q_lo,
   p.ids = ids;
   p.buf = buf;
   p.q_n = q_n, p.n = budget * 128, p.d = d, p.w = w, p.r = r;
+  p.nv = p.n;
   p.jbits = jbits;
   return two_level
              ? (int)mma::launch_any<kSym2, true>(q, q_lo, pv, table_rows, p,

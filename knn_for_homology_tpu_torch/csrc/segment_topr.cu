@@ -7,9 +7,9 @@
 // keeps the R largest ordered-int32 similarities (knn::ordered_int) seen in
 // that lane, sorted descending, each with its pass index j. A strict `>`
 // keeps the earlier pass on ties (the reference's lax.top_k order); empty
-// slots hold INT32_MIN / -1 and columns >= n never enter. Buffer layout as
-// in the reference: slot r of lane w sits at column r*W + w of the
-// [Q, R*W] buffers. The epilogue (the two-key sort, the certificate, the
+// slots hold INT32_MIN / -1 and columns >= n_valid never enter. Buffer
+// layout as in the reference: slot r of lane w sits at column r*W + w of
+// the [Q, R*W] buffers. The epilogue (the two-key sort, the certificate, the
 // rescue) stays in PyTorch, as it stayed outside the Pallas kernel
 // (ops/exact_cuda.py).
 //
@@ -67,6 +67,7 @@ struct Params {
   int* buf_v;
   int* buf_i;
   int q_n, n, w, r, chunks, stages;
+  int nv;  // columns >= nv never enter (min(n, n_valid)); the passes are n's
   bool l2, global_slots;
 };
 
@@ -191,10 +192,10 @@ segment_topr(const __grid_constant__ CUtensorMap q_map,
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          // rows past q_n and columns past n never enter
+          // rows past q_n and columns past nv never enter
           const int c = c0 + 8 * j + 2 * t + (e & 1);
           int cand = INT_MIN;
-          if (live[e >> 1] && c < p.n) {
+          if (live[e >> 1] && c < p.nv) {
             float sim = acc[4 * (b * NJ + j) + e];
             if (p.l2)  // 2 dot - |q|^2 - |d|^2, in the reference's order
               sim = __fsub_rn(__fsub_rn(2.f * sim, q_sq[e >> 1]), p.d_sq[c]);
@@ -273,11 +274,13 @@ cudaError_t launch(const float* q, const float* db, const Params& p,
 // bytes); norms: [q_n + n] f32 scratch for l2 (the squared norms of the
 // queries, then of the db rows), else unused. The plan (ring stages,
 // slots in device memory) is the wrapper's (ops/exact_cuda.py:topr_plan);
-// a plan that does not fit is refused.
+// a plan that does not fit is refused. Columns >= n_valid never enter a
+// slot (a shard's pad rows); the passes stay those of all n rows.
 extern "C" int knn_segment_topr(const float* q, const float* db, float* norms,
-                                int* buf_v, int* buf_i, int q_n, int n, int d,
-                                int w, int r_slots, int l2, int stages,
-                                int global_slots, cudaStream_t stream) {
+                                int* buf_v, int* buf_i, int q_n, int n,
+                                int n_valid, int d, int w, int r_slots, int l2,
+                                int stages, int global_slots,
+                                cudaStream_t stream) {
   const int passes = n > 0 && w > 0 ? (n + w - 1) / w : 0;
   if (w < BN || w % BN != 0 ||
       r_slots < 1 || q_n < 1 || n < 1 || d < 4 || d % 4 != 0 || stages < 2 ||
@@ -290,6 +293,7 @@ extern "C" int knn_segment_topr(const float* q, const float* db, float* norms,
   p.buf_v = buf_v;
   p.buf_i = buf_i;
   p.q_n = q_n, p.n = n, p.w = w, p.r = r_slots;
+  p.nv = n_valid < 0 ? 0 : (n_valid < n ? n_valid : n);
   p.chunks = (d + COLS - 1) / COLS;
   p.stages = stages;
   p.l2 = l2 != 0;

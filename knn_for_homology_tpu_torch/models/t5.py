@@ -30,6 +30,7 @@ operands cast once; the mask fill is -1e9, so a row with every key masked
 softmaxes to uniform (dense routes) or to zero (flash routes), never NaN.
 """
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
@@ -141,14 +142,16 @@ def _projections(x, params, config: T5Config):
     ]
 
 
-def _output(x, ctx, params):
-    """x + ctx @ o for ctx [B, H, L, dk], cast to x's dtype first."""
+def _output(x, ctx, params, residual=True):
+    """x + ctx @ o for ctx [B, H, L, dk], cast to x's dtype first; without
+    `residual` ctx @ o alone (a tensor-parallel rank's partial sum)."""
     b, l = x.shape[:2]
     ctx = ctx.transpose(1, 2).reshape(b, l, -1).to(x.dtype)
-    return x + torch.matmul(ctx, params["o"])
+    out = torch.matmul(ctx, params["o"])
+    return x + out if residual else out
 
 
-def _attention(x, params, bias, mask, config: T5Config):
+def _attention(x, params, bias, mask, config: T5Config, residual=True):
     """Dense self-attention block (pre-norm). x [B, L, d]; bias [1, H, L, L]
     fp32; fp32 scores, softmax, probabilities in the model dtype, fp32 PV
     accumulation cast once."""
@@ -158,10 +161,11 @@ def _attention(x, params, bias, mask, config: T5Config):
     scores = torch.where(mask[:, None, None, :], scores, NEG)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.matmul(probs.float(), v.float()).to(x.dtype)
-    return _output(x, ctx, params)
+    return _output(x, ctx, params, residual)
 
 
-def _attention_short(x, params, mask, table, config: T5Config):
+def _attention_short(x, params, mask, table, config: T5Config,
+                     residual=True):
     """Dense attention through kernel I (ops/short_cuda.py): projections
     here, scores + bias + softmax + PV fused. `table` [H, 2L-1] fp32 comes
     from ops/flash_attention.offset_bias_table, once per encode."""
@@ -169,10 +173,11 @@ def _attention_short(x, params, mask, table, config: T5Config):
 
     q, k, v = _projections(x, params, config)
     ctx = short_attention_t5(q, k, v, mask, table)
-    return _output(x, ctx, params)
+    return _output(x, ctx, params, residual)
 
 
-def _attention_flash(x, params, mask, table, config: T5Config):
+def _attention_flash(x, params, mask, table, config: T5Config,
+                     residual=True):
     """Blockwise attention through kernel H (ops/flash_cuda.py): qkv
     projections here, the online softmax and the offset bias in the kernel.
     `table` [H, 2L-1] fp32 comes from ops/flash_attention.offset_bias_table,
@@ -181,10 +186,11 @@ def _attention_flash(x, params, mask, table, config: T5Config):
 
     q, k, v = _projections(x, params, config)
     ctx = flash_attention_t5(q, k, v, mask, table, block=config.attention_chunk)
-    return _output(x, ctx, params)
+    return _output(x, ctx, params, residual)
 
 
-def _attention_blockwise(x, params, mask, table, config: T5Config):
+def _attention_blockwise(x, params, mask, table, config: T5Config,
+                         residual=True):
     """The JAX package's XLA formulation of blockwise attention in plain
     torch: query chunks loop over key/value chunks carrying the online
     softmax state (running max from -inf, normaliser, fp32 accumulator);
@@ -216,22 +222,23 @@ def _attention_blockwise(x, params, mask, table, config: T5Config):
             norm = norm * correction + p.sum(dim=-1, keepdim=True)
             run_max = new_max
         ctx[:, :, q0:q1] = acc / torch.clamp(norm, min=1e-30)
-    return _output(x, ctx, params)
+    return _output(x, ctx, params, residual)
 
 
-def _mlp(x, params, config: T5Config):
+def _mlp(x, params, config: T5Config, residual=True):
     if config.use_fused_ffn == "auto" or bool(config.use_fused_ffn):
         from ..ops.ffn_cuda import fused_ffn_t5
 
         b, l, d = x.shape
         out = fused_ffn_t5(
             x.reshape(b * l, d), params["ln"], params["wi"], params["wo"],
-            eps=config.layer_norm_eps,
+            eps=config.layer_norm_eps, residual=residual,
         )
         return out.reshape(b, l, d)
     normed = rms_norm(x, params["ln"], config.layer_norm_eps)
     hidden = torch.relu(torch.matmul(normed, params["wi"]))
-    return x + torch.matmul(hidden, params["wo"])
+    out = torch.matmul(hidden, params["wo"])
+    return x + out if residual else out
 
 
 def encode(
@@ -239,8 +246,15 @@ def encode(
     token_ids: torch.Tensor,  # [B, L] int
     mask: torch.Tensor,  # [B, L] bool (True = real token)
     config: T5Config,
+    reduce=None,
 ) -> torch.Tensor:
-    """Per-token hidden states [B, L, d_model] in config.dtype."""
+    """Per-token hidden states [B, L, d_model] in config.dtype.
+
+    `reduce` runs the blocks tensor-parallel (parallel/encoder_sharding.py):
+    `params` and `config` then hold one rank's heads and d_ff slice, each
+    block returns its partial sum without x, and x is added once to
+    `reduce(partial)` (the sum over ranks, in fp32) before the one cast to
+    config.dtype."""
     from ..ops.flash_attention import offset_bias_table
 
     x = params["embedding"][token_ids.long()].to(config.dtype)
@@ -263,16 +277,25 @@ def encode(
         )
     else:
         bias = position_bias(rel, length, length, config)
+    if use_flash:
+        attend = functools.partial(_attention_flash, mask=mask, table=table)
+    elif blockwise:
+        attend = functools.partial(_attention_blockwise, mask=mask,
+                                   table=table)
+    elif use_short:
+        attend = functools.partial(_attention_short, mask=mask, table=table)
+    else:
+        attend = functools.partial(_attention, bias=bias, mask=mask)
+
+    def block(fn, x, layer):
+        if reduce is None:
+            return fn(x, layer, config=config)
+        partial = fn(x, layer, config=config, residual=False)
+        return (x.float() + reduce(partial.float())).to(x.dtype)
+
     for layer in params["layers"]:
-        if use_flash:
-            x = _attention_flash(x, layer["attn"], mask, table, config)
-        elif blockwise:
-            x = _attention_blockwise(x, layer["attn"], mask, table, config)
-        elif use_short:
-            x = _attention_short(x, layer["attn"], mask, table, config)
-        else:
-            x = _attention(x, layer["attn"], bias, mask, config)
-        x = _mlp(x, layer["mlp"], config)
+        x = block(attend, x, layer["attn"])
+        x = block(_mlp, x, layer["mlp"])
     return rms_norm(x, params["final_ln"], config.layer_norm_eps)
 
 

@@ -42,15 +42,15 @@ SIGNATURES = {
     "knn_flat_topk": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ],
-    # q, db, norms, buf_v, buf_i, q_n, n, d, w, r, l2, stages, global_slots,
-    # stream
+    # q, db, norms, buf_v, buf_i, q_n, n, n_valid, d, w, r, l2, stages,
+    # global_slots, stream
     "knn_segment_topr": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
-    # q, q_lo, db, scales, norms, buf, q_n, n, d, w, r, jbits, variant, l2,
-    # stream
+    # q, q_lo, db, scales, norms, buf, q_n, n, n_valid, d, w, r, jbits,
+    # variant, l2, stream
     "knn_segment_packed": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     # q, q_lo, pv, scales, ids, cells, buf, q_n, budget, table_rows, d, w,
     # r, jbits, two_level, stream
@@ -75,8 +75,8 @@ SIGNATURES = {
     ],
     # g, k -> warps of kernel C's DP grid (rows of its boundary scratch)
     "knn_sw_grouped_warps": [_I, _I],
-    # x, ln, wi, wo, normed, h, out, t, d, f, eps, stream
-    "knn_ffn_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, ln, wi, wo, normed, h, out, t, d, f, eps, residual, stream
+    "knn_ffn_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # q, k, v, mask, table, out, b, h, l, stream
     "knn_flash_t5": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, mask, table, out, b, h, l, stream

@@ -14,6 +14,11 @@ as `iter_card_blocks` allows, and its plain PyTorch version on the CPU, in
 the reference's blocks. The reference's VMEM/SMEM eligibility test and its XLA
 fallback were TPU limits and have no counterpart here.
 
+The reference's XLA entries run on kernel C too: `sw_scores` (pairs, B
+groups of one lane) and `sw_scores_grouped`, both "blast" by default, and
+`align_pairs`, which buckets parallel (query, target) lists into
+`sw_scores` batches ("mmseqs" by default).
+
 Scoring conventions (GAP_FIRST): "mmseqs" (length-1 gap costs 11, the
 align_hits default) and "blast" (length-1 gap costs 12).
 """
@@ -117,6 +122,43 @@ def e_values(
     """Karlin-Altschul E = K·m·n·exp(-λS), in float32."""
     m = torch.clamp(query_lengths.to(torch.float32), min=1.0)
     return KA_K * m * db_residues * torch.exp(-KA_LAMBDA * scores)
+
+
+def sw_scores(
+    q_codes: torch.Tensor,  # [B, Lq] integer, -1 padding
+    t_codes: torch.Tensor,  # [B, Lt] integer, -1 padding
+    convention: str = "blast",
+    unroll: int = 1,
+    scan_chunk: int = 0,
+) -> torch.Tensor:
+    """Local-alignment scores [B] float32 of each (query, target) pair (the
+    reference's pair-batched XLA scan): kernel C on a CUDA tensor, as B
+    groups of one lane each (K = 1), its plain version on a CPU tensor.
+    `unroll` and `scan_chunk` shaped the reference's XLA scan and change no
+    result; they are accepted and unused."""
+    from .align_cuda import sw_scores_grouped as grouped
+
+    del unroll, scan_chunk
+    if q_codes.dim() != 2 or t_codes.dim() != 2:
+        raise ValueError("need q_codes [B, Lq] and t_codes [B, Lt]")
+    return grouped(q_codes, t_codes[:, None, :], convention=convention)[:, 0]
+
+
+def sw_scores_grouped(
+    q_codes: torch.Tensor,  # [G, Lq] integer, -1 padding
+    t_codes: torch.Tensor,  # [G, K, Lt] integer, -1 padding
+    convention: str = "blast",
+    unroll: int = 1,
+    scan_chunk: int = 0,
+) -> torch.Tensor:
+    """Local-alignment scores [G, K] float32: each query g against its K
+    targets (the reference's query-grouped XLA scan), through kernel C or
+    its plain version. `unroll` and `scan_chunk` are accepted and unused,
+    as in sw_scores."""
+    from .align_cuda import sw_scores_grouped as grouped
+
+    del unroll, scan_chunk
+    return grouped(q_codes, t_codes, convention=convention)
 
 
 def plan_align_cells(
@@ -388,3 +430,56 @@ def align_hits(
     flat_ev = e_values(flat_scores, q_lens, db_residues).numpy()
     evs = np.split(flat_ev, np.cumsum(lengths)[:-1]) if lengths else []
     return scores, [np.ascontiguousarray(e) for e in evs]
+
+
+def align_pairs(
+    queries: list,
+    targets: list,
+    db_residues: float = None,
+    pair_batch: int = 2048,
+    bucket: int = 256,
+    convention: str = "mmseqs",
+    unroll: int = 1,
+    scan_chunk: int = 128,
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Align parallel lists of (query, target) sequence strings. Returns
+    (scores [N], e_values [N]) float32. Batches of `pair_batch` pairs share
+    one (Lq, Lt) shape, rounded up to `bucket` multiples, as in the
+    reference (its shapes bounded the XLA compiles; here they change no
+    score: pad columns and pad pairs score 0). Each batch is one
+    `sw_scores` call on `device`. `unroll` and `scan_chunk` are accepted
+    and unused."""
+    del unroll, scan_chunk
+    if len(queries) != len(targets):
+        raise ValueError("queries and targets must have equal length")
+    n = len(queries)
+    if n == 0:
+        return np.zeros(0, np.float32), np.zeros(0, np.float32)
+    device = resolve_device(device)
+    if db_residues is None:
+        db_residues = float(sum(len(t) for t in targets))
+
+    def pad_len(x):
+        return max(bucket, ((x + bucket - 1) // bucket) * bucket)
+
+    lq = pad_len(max(len(q) for q in queries))
+    lt = pad_len(max(len(t) for t in targets))
+    batch = min(pair_batch, n)
+    scores = np.zeros(n, dtype=np.float32)
+    pending = []
+    for start in range(0, n, batch):
+        stop = min(start + batch, n)
+        q = np.full((batch, lq), -1, dtype=np.int32)
+        t = np.full((batch, lt), -1, dtype=np.int8)
+        for r, i in enumerate(range(start, stop)):
+            q[r] = encode_sequence(queries[i], lq)
+            t[r] = encode_sequence(targets[i], lt)
+        out = sw_scores(torch.from_numpy(q).to(device),
+                        torch.from_numpy(t).to(device), convention=convention)
+        pending.append((start, stop, out))
+    for start, stop, out in pending:
+        scores[start:stop] = out[: stop - start].cpu().numpy()
+    q_lens = torch.tensor([len(q) for q in queries], dtype=torch.float32)
+    ev = e_values(torch.from_numpy(scores), q_lens, db_residues).numpy()
+    return scores, ev

@@ -14,6 +14,10 @@ A CUDA tensor goes to the kernel; a CPU tensor to `segment_topr_plain`,
 which builds the same buffer in plain PyTorch. The epilogue is PyTorch on
 either device, as it was XLA outside the Pallas kernel.
 
+`exact_topk_traced` is the entry sharded callers use: `exact_topk` with a
+shard's n_valid (pad rows never enter a slot) at the reference's traced
+slot default.
+
 The planner (`plan`, `plan_fingerprint`) also sizes the packed approx
 kernels of ops/packed_cuda.py: R from the recall target (`r_for_recall`)
 instead of the certificate's bound. W and R decide which ids survive, so
@@ -195,9 +199,14 @@ def pad_columns(*tensors: torch.Tensor, multiple: int = 4):
     return tuple(torch.nn.functional.pad(t, pad) for t in tensors)
 
 
+def row_bound(n: int, n_valid) -> int:
+    """The row bound min(n, n_valid) of the kernels' column mask."""
+    return n if n_valid is None else max(0, min(n, int(n_valid)))
+
+
 def segment_topr_plain(
     db: torch.Tensor, queries: torch.Tensor, db_tile: int, r_slots: int,
-    metric: str = "cosine",
+    metric: str = "cosine", n_valid: int = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: the same (buf_v, buf_i)
     [Q, R·W] int32 buffers (ordered-int values, pass indices)."""
@@ -205,10 +214,11 @@ def segment_topr_plain(
     q_n = queries.shape[0]
     w, r = db_tile, r_slots
     passes = -(-n // w)
-    sims = similarity_block(queries, db, metric)
+    nv = row_bound(n, n_valid)
+    sims = similarity_block(queries, db[:nv], metric)
     oi = _ordered_int(sims.view(torch.int32))
     full = oi.new_full((q_n, passes * w), INT32_MIN)
-    full[:, :n] = oi
+    full[:, :nv] = oi
     # [Q, W, P]: a stable descending sort over passes keeps the earlier
     # pass first on ties, like the kernel's strict `>`
     per_lane = full.view(q_n, passes, w).transpose(1, 2)
@@ -229,11 +239,13 @@ def segment_topr_plain(
 
 def segment_topr_kernel(
     db: torch.Tensor, queries: torch.Tensor, db_tile: int, r_slots: int,
-    metric: str = "cosine",
+    metric: str = "cosine", n_valid: int = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-segment top-R candidate buffers (buf_v, buf_i), [Q, R·W] int32
     each: slot r of lane w at column r·W + w, values as ordered int32,
-    ids as pass indices, empty slots INT32_MIN / -1. On the card, a d that
+    ids as pass indices, empty slots INT32_MIN / -1. Rows ≥ min(N,
+    n_valid) never enter a slot (a shard's pad rows), while the passes
+    stay those of all N rows, as the reference plans them. On the card, a d that
     is not a multiple of 4 is zero-padded (`pad_columns`): a copy of both
     operands, the whole db included, on every call.
 
@@ -249,7 +261,8 @@ def segment_topr_kernel(
     if db_tile % 64 or r_slots < 1:
         raise ValueError(f"need W % 64 == 0 and R ≥ 1, got {db_tile}, {r_slots}")
     if db.device.type == "cpu":
-        return segment_topr_plain(db, queries, db_tile, r_slots, metric)
+        return segment_topr_plain(db, queries, db_tile, r_slots, metric,
+                                  n_valid)
     # d % 4 != 0 copies both operands, the whole db included, on every call
     # (no configuration of the repo has such a d: all are 1024)
     db, queries = pad_columns(db, queries)
@@ -268,8 +281,8 @@ def segment_topr_kernel(
     code = _build.library().knn_segment_topr(
         queries.data_ptr(), db.data_ptr(),
         None if norms is None else norms.data_ptr(), buf_v.data_ptr(),
-        buf_i.data_ptr(), q_n, n, d, db_tile, r_slots, int(metric == "l2"),
-        stages, int(global_slots), _build.stream_ptr(dev),
+        buf_i.data_ptr(), q_n, n, row_bound(n, n_valid), d, db_tile, r_slots,
+        int(metric == "l2"), stages, int(global_slots), _build.stream_ptr(dev),
     )
     _build.check(code, "knn_segment_topr")
     segment_topr_kernel.launches += 1
@@ -308,10 +321,11 @@ def epilogue(
 
 def candidates_and_topk(
     db: torch.Tensor, queries: torch.Tensor, k: int, r_slots: int,
-    metric: str, db_tile: int,
+    metric: str, db_tile: int, n_valid: int = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel (or its plain version) + epilogue for one query block."""
-    buf_v, buf_i = segment_topr_kernel(db, queries, db_tile, r_slots, metric)
+    buf_v, buf_i = segment_topr_kernel(db, queries, db_tile, r_slots, metric,
+                                       n_valid)
     return epilogue(buf_v, buf_i, k, db_tile, r_slots)
 
 
@@ -324,13 +338,18 @@ def exact_topk(
     r_slots: int = None,
     exact: bool = True,
     recall_target: float = 0.95,
+    n_valid: int = None,
+    exact_row_target: float = 3e-3,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over the whole database (the large-k path). Returns
     (sims [Q, k] descending, ids [Q, k] int32) in the internal convention;
     ids equal a full stable sort's of the similarities the route computes,
     k > N pads with (-inf, -1). On the card those are kernel B's 3xTF32
     products: where they differ from the plain fp32 route's by a few ulps
-    (`segment_topr_kernel`), ids may swap among such near-ties.
+    (`segment_topr_kernel`), ids may swap among such near-ties. Rows ≥
+    n_valid never win (they come back as (-inf, -1) when k exceeds
+    n_valid); the plan is that of all N rows, its R sized for
+    `exact_row_target` suspect rows.
 
     `exact=False` goes to the packed approx kernels (ops/packed_cuda.py) at
     `recall_target`, as the reference's exact_pallas_topk does."""
@@ -339,7 +358,7 @@ def exact_topk(
 
         return packed_topk(
             db, queries, k, metric=metric, db_tile=db_tile,
-            recall_target=recall_target,
+            recall_target=recall_target, n_valid=n_valid,
         )
     n = db.shape[0]
     q_n = queries.shape[0]
@@ -351,11 +370,13 @@ def exact_topk(
     k_eff = min(k, n)
     if db_tile is None:
         db_tile = default_db_tile(k_eff)
-    db_tile, r_slots = plan(n, k_eff, db_tile, r_slots)
+    db_tile, r_slots = plan(n, k_eff, db_tile, r_slots,
+                            exact_row_target=exact_row_target)
     max_block = max(32, CANDIDATE_BYTES // (r_slots * db_tile * 8))
     parts = [
         candidates_and_topk(
-            db, queries[s : s + max_block], k_eff, r_slots, metric, db_tile
+            db, queries[s : s + max_block], k_eff, r_slots, metric, db_tile,
+            n_valid,
         )
         for s in range(0, q_n, max_block)
     ]
@@ -370,10 +391,35 @@ def exact_topk(
         if r_slots < 32:
             f_vals, f_ids = exact_topk(
                 db, sub, k_eff, metric=metric, db_tile=db_tile,
-                r_slots=2 * r_slots,
+                r_slots=2 * r_slots, n_valid=n_valid,
             )
         else:
-            f_vals, f_ids = oneshot_topk(db, sub, k_eff, metric=metric)
+            f_vals, f_ids = oneshot_topk(db, sub, k_eff, metric=metric,
+                                         n_valid=n_valid)
         vals[flagged] = f_vals
         ids[flagged] = f_ids
     return pad_k(vals, ids, k)
+
+
+def exact_topk_traced(
+    db: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    metric: str = "cosine",
+    n_valid: int = None,
+    db_tile: int = None,
+    r_slots: int = None,
+    exact: bool = True,
+    recall_target: float = 0.95,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The entry of kernel B that sharded callers use (port of
+    exact_pallas_topk_traced): `exact_topk` with the shard's n_valid, its
+    slots sized for the reference's traced default (1e-6 suspect rows,
+    not 3e-3), so a shard plans W and R as the reference's does. The
+    reference recomputes a whole query block when any row is suspect,
+    because `lax.cond` cannot re-run single rows under a trace; here the
+    suspect rows are re-run alone, with the same exact ids."""
+    return exact_topk(db, queries, k, metric=metric, db_tile=db_tile,
+                      r_slots=r_slots, exact=exact,
+                      recall_target=recall_target, n_valid=n_valid,
+                      exact_row_target=1e-6)

@@ -24,8 +24,11 @@ def fused_ffn_t5(
     wi: torch.Tensor,  # [D, F]
     wo: torch.Tensor,  # [F, D]
     eps: float = 1e-6,
+    residual: bool = True,
 ) -> torch.Tensor:
-    """→ x + relu(rms_norm(x, ln_scale)·wi)·wo, [T, D] in x's dtype."""
+    """→ x + relu(rms_norm(x, ln_scale)·wi)·wo, [T, D] in x's dtype; with
+    `residual=False` the block without x (one rank's partial sum under
+    tensor parallelism, where x is added once after the all-reduce)."""
     t, d = x.shape
     f = wi.shape[1]
     if ln_scale.shape != (d,) or wi.shape != (d, f) or wo.shape != (f, d):
@@ -37,7 +40,7 @@ def fused_ffn_t5(
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
     if x.device.type == "cpu":
-        return fused_ffn_plain(x, ln_scale, wi, wo, eps)
+        return fused_ffn_plain(x, ln_scale, wi, wo, eps, residual)
     for name, a in (("x", x), ("ln_scale", ln_scale), ("wi", wi), ("wo", wo)):
         if a.dtype != torch.bfloat16:
             raise TypeError(f"kernel G takes bf16; {name} is {a.dtype}")
@@ -56,7 +59,7 @@ def fused_ffn_t5(
     code = _build.library().knn_ffn_fused(
         x.data_ptr(), ln_scale.data_ptr(), wi.data_ptr(), wo.data_ptr(),
         normed.data_ptr(), h.data_ptr(), out.data_ptr(), t, d, f, float(eps),
-        _build.stream_ptr(x.device),
+        int(residual), _build.stream_ptr(x.device),
     )
     _build.check(code, "knn_ffn_fused")
     fused_ffn_t5.launches += 1

@@ -41,6 +41,7 @@ from .exact_cuda import (
     _ordered_int,
     default_db_tile,
     plan,
+    row_bound,
 )
 from .topk import NEG_INF, pad_k
 
@@ -176,11 +177,16 @@ def segment_packed_plain(
     queries: torch.Tensor, db: torch.Tensor, db_tile: int, r_slots: int,
     metric: str = "ip", storage: str = "native",
     scales: torch.Tensor = None, q_lo: torch.Tensor = None,
+    n_valid: int = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernels: the same [Q, R·W] int32
     packed buffer (fp32 matmul, TF32 off)."""
+    n = db.shape[0]
     sims = _packed_sims(queries, db, metric, storage, scales, q_lo)
-    return pack_lanes(sims, db_tile, r_slots, pass_bits(db.shape[0], db_tile))
+    valid = None
+    if row_bound(n, n_valid) < n:
+        valid = torch.arange(n, device=db.device) < row_bound(n, n_valid)
+    return pack_lanes(sims, db_tile, r_slots, pass_bits(n, db_tile), valid)
 
 
 def pack_lanes(
@@ -214,15 +220,19 @@ def segment_packed_kernel(
     queries: torch.Tensor, db: torch.Tensor, db_tile: int, r_slots: int,
     metric: str = "ip", storage: str = "native",
     scales: torch.Tensor = None, q_lo: torch.Tensor = None,
+    n_valid: int = None,
 ) -> torch.Tensor:
     """Per-segment top-R packed buffer [Q, R·W] int32 (slot r of lane w at
     column r·W + w, empty slots INT32_MIN). Operands as the storage takes
     them: native fp32/bf16 queries and db of one dtype; sq8 bf16 queries,
-    int8 db, scales; sym int8 queries (+ q_lo for sym2), int8 db, scales."""
+    int8 db, scales; sym int8 queries (+ q_lo for sym2), int8 db, scales.
+    Rows ≥ min(N, n_valid) never enter a slot, while the passes and jbits
+    stay those of all N rows, as the reference plans them."""
     _check(queries, db, db_tile, r_slots, metric, storage, scales, q_lo)
     if db.device.type == "cpu":
         return segment_packed_plain(
-            queries, db, db_tile, r_slots, metric, storage, scales, q_lo
+            queries, db, db_tile, r_slots, metric, storage, scales, q_lo,
+            n_valid,
         )
     n, d = db.shape
     q_n = queries.shape[0]
@@ -255,7 +265,8 @@ def segment_packed_kernel(
         queries.data_ptr(), None if q_lo is None else q_lo.data_ptr(),
         db.data_ptr(), None if scales is None else scales.data_ptr(),
         None if norms is None else norms.data_ptr(),
-        buf.data_ptr(), q_n, n, d, db_tile, r_slots, pass_bits(n, db_tile),
+        buf.data_ptr(), q_n, n,
+        row_bound(n, n_valid), d, db_tile, r_slots, pass_bits(n, db_tile),
         variant, int(metric == "l2"), _build.stream_ptr(db.device),
     )
     _build.check(code, "knn_segment_packed")
@@ -295,10 +306,13 @@ def packed_topk(
     db_tile: int = None,
     recall_target: float = 0.95,
     storage: str = "native",
+    n_valid: int = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Approx top-k via the packed segment-top-R kernels (port of
     packed_pallas_topk). Returns (sims [Q, k] descending, ids [Q, k]
-    int32) in the internal convention; k > N pads with (-inf, -1).
+    int32) in the internal convention; k > N pads with (-inf, -1). Rows ≥
+    n_valid (a shard's pad rows) never enter; W, R and jbits stay those of
+    all N rows.
 
     `db` is a float tensor or an `SQ8Database` (then storage "native"
     means "sq8-sym", or "sq8" for l2). The sym storages score ip / cosine
@@ -356,7 +370,8 @@ def packed_topk(
         else:
             block, q_lo, qsc = quantize_queries(block, storage == "sq8-sym2")
         buf = segment_packed_kernel(
-            block, db, db_tile, r_slots, metric, storage, scales, q_lo
+            block, db, db_tile, r_slots, metric, storage, scales, q_lo,
+            n_valid,
         )
         vals, ids = decode_packed(buf, k_eff, db_tile, jbits)
         if qsc is not None:

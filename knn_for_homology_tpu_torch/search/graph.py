@@ -116,6 +116,13 @@ def _beam_loop(init_ids, init_sims, expand_step, beam_width: int,
     return beam_ids, beam_sims
 
 
+def _mask_rows(sims: torch.Tensor, ids: torch.Tensor, n_valid) -> torch.Tensor:
+    """-inf where ids ≥ n_valid (a shard's pad rows never score)."""
+    if n_valid is None:
+        return sims
+    return torch.where(ids < n_valid, sims, NEG_INF)
+
+
 def _init_beam(entry_ids: torch.Tensor, q_n: int) -> torch.Tensor:
     """[Q, S] entries: shared [S] ones broadcast, per-query [Q, S] as is."""
     if entry_ids.dim() == 1:
@@ -123,12 +130,12 @@ def _init_beam(entry_ids: torch.Tensor, q_n: int) -> torch.Tensor:
     return entry_ids
 
 
-def _rescore(db, queries, top_ids, metric: str):
+def _rescore(db, queries, top_ids, metric: str, n_valid=None):
     """Exact fp32 rescore of the winners, sorted by (score descending, id
     ascending) as the reference's two-key sort."""
     vecs = db[top_ids.clamp(0, db.shape[0] - 1).long()]
     s = _rows_sims(vecs, queries, queries, metric)
-    s = torch.where(top_ids < 0, NEG_INF, s)
+    s = _mask_rows(torch.where(top_ids < 0, NEG_INF, s), top_ids, n_valid)
     ids, by_id = torch.sort(top_ids, dim=1, stable=True)
     s, order = torch.sort(torch.gather(s, 1, by_id), dim=1, descending=True,
                           stable=True)
@@ -148,17 +155,20 @@ def beam_search_packed(
     beam_width: int = 256,
     expand: int = 8,
     iters: int = 16,
+    n_valid: Optional[int] = None,
+    rescore: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search over the packed int8 neighbour slabs (cosine / ip): each
     step's neighbour gather and scoring is one call of kernel K on the
     card, its plain version on the CPU. Returns (sims [Q, k] descending,
-    ids [Q, k])."""
+    ids [Q, k]). Rows ≥ n_valid (a shard's pad rows) never score;
+    `rescore=False` returns the beam's traversal scores."""
     q_n = queries.shape[0]
     n = db.shape[0]
     q_t = _bf16(queries)  # K takes the bf16-rounded query, as in JAX
     init_ids = _init_beam(entry_ids, q_n)
-    init_sims = torch.where(init_ids < 0, NEG_INF,
-                            _traversal_sims(db, init_ids, q_t, queries, "ip"))
+    init_sims = torch.where(init_ids < 0, NEG_INF, _mask_rows(
+        _traversal_sims(db, init_ids, q_t, queries, "ip"), init_ids, n_valid))
 
     def expand_step(sel_ids):
         sims3, nbrs3 = slab_cuda.beam_expand(
@@ -167,11 +177,14 @@ def beam_search_packed(
         )
         # expanded beam padding scores node 0's slab: not candidates
         nbrs = _mask_padding(nbrs3[:, :, :degree], sel_ids)
-        return nbrs, sims3[:, :, :degree].reshape(q_n, -1)
+        return nbrs, _mask_rows(sims3[:, :, :degree].reshape(q_n, -1), nbrs,
+                                n_valid)
 
-    beam_ids, _ = _beam_loop(init_ids, init_sims, expand_step,
-                             max(beam_width, k), expand, iters)
-    return _rescore(db, queries, beam_ids[:, :k], "ip")
+    beam_ids, beam_sims = _beam_loop(init_ids, init_sims, expand_step,
+                                     max(beam_width, k), expand, iters)
+    if not rescore:
+        return beam_sims[:, :k], beam_ids[:, :k]
+    return _rescore(db, queries, beam_ids[:, :k], "ip", n_valid)
 
 
 def beam_search(
@@ -185,24 +198,33 @@ def beam_search(
     iters: int = 24,
     metric: str = "cosine",
     db_traversal: Optional[torch.Tensor] = None,  # [N, d] bf16 copy
+    n_valid: Optional[int] = None,
+    rescore: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search over the adjacency lists, scoring gathered rows of the
     bf16 traversal copy; the winners are rescored against the fp32 `db`.
-    Returns (sims [Q, k] descending, ids [Q, k])."""
+    Returns (sims [Q, k] descending, ids [Q, k]). Rows ≥ n_valid (a
+    shard's pad rows) never score; `rescore=False` returns the beam's
+    traversal scores."""
     q_n = queries.shape[0]
     db_t = db.to(torch.bfloat16) if db_traversal is None else db_traversal
     q_t = _bf16(queries)
     init_ids = _init_beam(entry_ids, q_n)
-    init_sims = _traversal_sims(db_t, init_ids, q_t, queries, metric)
+    init_sims = _mask_rows(
+        _traversal_sims(db_t, init_ids, q_t, queries, metric), init_ids,
+        n_valid)
 
     def expand_step(sel_ids):
         nbrs = _mask_padding(graph[sel_ids.clamp(0, graph.shape[0] - 1).long()],
                              sel_ids)
-        return nbrs, _traversal_sims(db_t, nbrs, q_t, queries, metric)
+        return nbrs, _mask_rows(
+            _traversal_sims(db_t, nbrs, q_t, queries, metric), nbrs, n_valid)
 
-    beam_ids, _ = _beam_loop(init_ids, init_sims, expand_step,
-                             max(beam_width, k), expand, iters)
-    return _rescore(db, queries, beam_ids[:, :k], metric)
+    beam_ids, beam_sims = _beam_loop(init_ids, init_sims, expand_step,
+                                     max(beam_width, k), expand, iters)
+    if not rescore:
+        return beam_sims[:, :k], beam_ids[:, :k]
+    return _rescore(db, queries, beam_ids[:, :k], metric, n_valid)
 
 
 def _finish_graph(graph: torch.Tensor, n: int, deg: int, r: int):
@@ -278,16 +300,19 @@ def nn_descent_build(
     return graph
 
 
-def _seed_entries(rows, pivot_ids, queries, n_entry: int, metric: str):
+def _seed_entries(rows, pivot_ids, queries, n_entry: int, metric: str,
+                  n_valid: Optional[int] = None):
     """Per-query entry points: the best `n_entry` of a strided pivot sample,
     scored once per query. The pivots are bf16-rounded; the queries too
     where `rows` is the bf16 traversal copy (the unpacked route), not
-    where it is the fp32 db (the packed route), as in the reference."""
+    where it is the fp32 db (the packed route), as in the reference.
+    Pivots ≥ n_valid (a shard's pad rows) are never picked."""
     p_vecs = _bf16(rows[pivot_ids.long()])
     q = queries if rows.dtype == torch.float32 else _bf16(queries)
     s = q @ p_vecs.T
     if metric == "l2":
         s = 2.0 * s - torch.sum(p_vecs * p_vecs, dim=-1)[None, :]
+    s = _mask_rows(s, pivot_ids[None, :], n_valid)
     sel = stable_topk(s, min(n_entry, pivot_ids.shape[0]))[1]
     return pivot_ids[sel]
 

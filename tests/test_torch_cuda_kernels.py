@@ -20,12 +20,15 @@ from knn_for_homology_tpu_torch.ops import (
     _build,
     align_cuda,
     exact_cuda,
+    ffn_cuda,
     flat_cuda,
     ivf_cuda,
     packed_cuda,
     slab_cuda,
 )
+from knn_for_homology_tpu_torch.ops import align as align_ops
 from knn_for_homology_tpu_torch.ops.align import encode_sequence
+from knn_for_homology_tpu_torch.ops.ffn import fused_ffn_plain
 from knn_for_homology_tpu_torch.ops.distance import similarity_block
 from knn_for_homology_tpu_torch.ops.topk import oneshot_topk, plain_topk
 from knn_for_homology_tpu_torch.search import graph as graph_mod
@@ -774,3 +777,92 @@ def test_graph_beam_loop_makes_no_host_sync(cuda, monkeypatch, route):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert ids.shape == (300, 20) and bool((ids[:, 0] >= 0).all())
+
+
+# --- the n_valid row bound (a shard's pad rows): columns >= n_valid never
+# enter a slot, the passes (and jbits) stay those of all n rows
+
+@pytest.mark.parametrize("n_valid", [0, 1, 257, 3100, 5000, 9000])
+@pytest.mark.parametrize("metric,r_slots", [("ip", 6), ("l2", 32)])
+def test_kernel_b_n_valid_bit_equal(cuda, n_valid, metric, r_slots):
+    db, qs = _ints(21, 5000, 70, 40, cuda)
+    got = exact_cuda.segment_topr_kernel(db, qs, 256, r_slots, metric,
+                                         n_valid)
+    want = exact_cuda.segment_topr_plain(db, qs, 256, r_slots, metric,
+                                         n_valid)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    live = got[1][got[1] >= 0]  # pass indices of filled slots
+    assert live.numel() == 0 or int(live.max()) < -(-min(n_valid, 5000) // 256)
+
+
+@pytest.mark.parametrize("n_valid", [0, 3100, 5000])
+@pytest.mark.parametrize("storage,metric", [
+    ("f32", "l2"), ("bf16", "ip"), ("sq8", "l2"), ("sq8-sym", "ip"),
+    ("sq8-sym2", "ip")])
+def test_packed_kernels_n_valid_bit_equal(cuda, storage, metric, n_valid):
+    ops = _packed_operands(22, storage, 5000, 70, 48, cuda)
+    kw = dict(db_tile=256, r_slots=7, metric=metric, n_valid=n_valid, **ops)
+    got = packed_cuda.segment_packed_kernel(**kw)
+    torch.testing.assert_close(got, packed_cuda.segment_packed_plain(**kw),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_exact_topk_traced_n_valid_on_the_card(cuda, exact):
+    # integer data: every dot exact, so the card's ids equal the CPU's
+    db, qs = _ints(23, 3000, 90, 128, cuda)
+    before = exact_cuda.segment_topr_kernel.launches
+    got = exact_cuda.exact_topk_traced(db, qs, 100, metric="ip",
+                                       n_valid=2500, exact=exact)
+    want = exact_cuda.exact_topk_traced(db.cpu(), qs.cpu(), 100, metric="ip",
+                                        n_valid=2500, exact=exact)
+    assert exact_cuda.segment_topr_kernel.launches == before + int(exact)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+    assert int(got[1].max()) < 2500
+
+
+@pytest.mark.parametrize("t,d,f", [(1, 128, 256), (300, 1024, 512),
+                                   (129, 256, 384), (7000, 1024, 8192)])
+def test_kernel_g_without_residual(cuda, t, d, f):
+    # the tensor-parallel block: relu(norm(x) wi) wo, x left out (F =
+    # 8192 is ProtT5-XL's d_ff over two model ranks)
+    rng = np.random.RandomState(24)
+
+    def bf16(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).to(device=cuda, dtype=torch.bfloat16)
+
+    x, ln = bf16(t, d, scale=2.0), bf16(d) + 1.0
+    wi, wo = bf16(d, f, scale=d**-0.5), bf16(f, d, scale=f**-0.5)
+    before = ffn_cuda.fused_ffn_t5.launches
+    got = ffn_cuda.fused_ffn_t5(x, ln, wi, wo, residual=False)
+    assert ffn_cuda.fused_ffn_t5.launches == before + 1
+    want = fused_ffn_plain(x, ln, wi, wo, residual=False)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0**-6 * float(want.float().abs().max()), err
+    with_x = ffn_cuda.fused_ffn_t5(x, ln, wi, wo)
+    assert float((with_x.float() - x.float() - got.float()).abs().max()) \
+        <= 2.0**-6 * float(with_x.float().abs().max())
+
+
+@pytest.mark.parametrize("convention", ["blast", "mmseqs"])
+def test_sw_scores_pairs_through_kernel_c(cuda, convention):
+    # the pair-batched entry: B groups of one lane (K = 1), ragged lengths
+    rng = np.random.RandomState(25)
+    seqs = ["".join(rng.choice(list(AAS), rng.randint(1, 300)))
+            for _ in range(2 * 700)]
+    q = torch.from_numpy(np.stack([encode_sequence(s, 320)
+                                   for s in seqs[:700]]))
+    t = torch.from_numpy(np.stack([encode_sequence(s, 300)
+                                   for s in seqs[700:]]))
+    before = align_cuda.sw_scores_grouped.launches
+    got = align_ops.sw_scores(q.to(cuda), t.to(cuda), convention=convention)
+    assert align_cuda.sw_scores_grouped.launches == before + 1
+    want = align_ops.sw_scores(q, t, convention=convention)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    scores, evs = align_ops.align_pairs(seqs[:700], seqs[700:],
+                                        convention=convention, device="cuda")
+    assert np.array_equal(scores, want.numpy())
+    assert evs.shape == (700,) and np.isfinite(evs).all()

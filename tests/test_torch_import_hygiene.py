@@ -53,7 +53,9 @@ def test_port_modules_are_all_listed():
                  "pipelines.layer_mix", "__main__", "search.graph",
                  "pipelines.reproduce", "utils.threefry", "models.elmo",
                  "models.bert", "models.xlnet", "models.unirep",
-                 "models.plus_rnn", "models.cpcprot", "models.module"):
+                 "models.plus_rnn", "models.cpcprot", "models.module",
+                 "parallel.__init__", "parallel.mesh", "parallel.sharded",
+                 "parallel.scale", "parallel.encoder_sharding", "entry"):
         assert f"knn_for_homology_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 15
 
