@@ -10,8 +10,9 @@ exact k = 1000 search on the same index; and the headline bench
 (knn_for_homology_tpu_torch/bench.py): flat all-vs-all at n = 131072,
 d = 1024, k = 1000 in every mode; the ProtT5 encoder path, sequences
 → pooled embeddings → neighbours; the full-protein path (the graph index,
-its default, and the IVF index); and the paper pipelines (the LSH index
-CLI, the Pfam20 domain and full-protein workloads, CATH20). Phases:
+its default, and the IVF index); the paper pipelines (the LSH index
+CLI, the Pfam20 domain and full-protein workloads, CATH20); the sharded
+path; and the MMseqs2 record I/O. Phases:
 
   1. environment: a CUDA device is required; prints the card and its limit;
   2. build: compiles the CUDA kernels from knn_for_homology_tpu_torch/
@@ -101,6 +102,14 @@ CLI, the Pfam20 domain and full-protein workloads, CATH20). Phases:
      dryrun_multichip(2) on gloo ranks of the card; (d) align_pairs /
      sw_scores on 4096 pairs of the main path's mix through C (one lane a
      group), bit-equal to the plain version, with GCUPS.
+ 13. the MMseqs2 record I/O on the host (interop/mmseqs_format.py), native
+     counts reset just before: the prefilter writer and the result reader
+     on their native route (interop/native/mmseqs_io.cpp, built with g++
+     at first use) and on their Python route, at 131072 queries x 13 hits
+     and 32768 x 300 (a seeded 1% of the hits missing) and on an
+     alignment-format result DB of the same shapes; the native route must
+     run, its files must be byte-equal and its arrays equal to the Python
+     route's; both routes' seconds, beside the card's name and limit.
 
 Phase 3 holds kernel A (its FFMA product) at 1024 queries, k = 13, and
 kernel B (3xTF32 wgmma products) at 512 queries of the exact k = 1000 plan,
@@ -2792,6 +2801,119 @@ def run_sharded(train, test, train_seqs, test_seqs, kernels, seed, tmp):
         f" {launches}")
 
 
+# phase 13: the MMseqs2 record I/O (interop/), the prefilter DB of each
+# shape (queries x hits: the main path's 13, the reference's prefilter
+# size 300) and an alignment-format result DB of the same shape; a share
+# of the hits missing (-1, skipped by the writers)
+MMSEQS_IO_SHAPES = ((131072, 13), (32768, 300))
+MMSEQS_IO_MISSING = 0.01
+MMSEQS_IO_POOL = 65536  # distinct alignment lines the result DB draws from
+
+
+@contextlib.contextmanager
+def python_io_route(native):
+    """The MMseqs2 format functions on their Python route, as where the
+    native library cannot be built."""
+    load = native.load
+    native.load = lambda: None
+    try:
+        yield
+    finally:
+        native.load = load
+
+
+def write_alignment_db(db: Path, kept, rng):
+    """An alignment-format result DB (`mmseqs align`'s ten columns, the
+    E-value in column 3): record q holds kept[q] lines drawn from a pool of
+    MMSEQS_IO_POOL seeded lines; returns its bytes."""
+    n = MMSEQS_IO_POOL
+    cols = zip(rng.integers(0, N_TRAIN, n).tolist(),
+               rng.integers(20, 900, n).tolist(), rng.random(n).tolist(),
+               (10.0 ** rng.uniform(-250, 1, n)).tolist(),
+               rng.integers(50, 2000, (n, 4)).tolist())
+    pool = [f"{t}\t{s}\t{i:.3f}\t{e:.3E}\t0\t{a}\t{b}\t0\t{c}\t{d}\n".encode()
+            for t, s, i, e, (a, b, c, d) in cols]
+    picks = rng.integers(0, n, int(kept.sum())).tolist()
+    bounds = np.concatenate([[0], np.cumsum(kept)]).tolist()
+    records = [b"".join([pool[i] for i in picks[a:b]]) + b"\0"
+               for a, b in zip(bounds, bounds[1:])]
+    offsets = np.concatenate([[0], np.cumsum([len(r) for r in records])])
+    Path(f"{db}.0").write_bytes(b"".join(records))
+    Path(f"{db}.index").write_text("".join(
+        f"{q}\t{offsets[q]}\t{len(r)}\n" for q, r in enumerate(records)))
+    return int(offsets[-1])
+
+
+def run_mmseqs_io(seed, tmp, card):
+    """Phase 13: the MMseqs2 prefilter writer and result reader
+    (interop/mmseqs_format.py) on their native route (interop/native, C++
+    built with g++ at first use) and their Python route, at each of
+    MMSEQS_IO_SHAPES, counts from zero. The native route must run, and its
+    files and arrays must equal the Python route's."""
+    from knn_for_homology_tpu_torch.interop import mmseqs_format, native
+
+    t_phase = t0 = time.perf_counter()
+    assert native.load() is not None, "phase 13: the native I/O did not build"
+    log(f"phase 13 build: {time.perf_counter() - t0:.3f} s ->"
+        f" {native.library_path().name}")
+    rng = np.random.default_rng(seed)
+    out = Path(tmp)
+    for nq, k in MMSEQS_IO_SHAPES:
+        hits = rng.integers(0, N_TRAIN, (nq, k))
+        hits[rng.random((nq, k)) < MMSEQS_IO_MISSING] = -1
+        scores = rng.uniform(-1, 1, (nq, k)).astype(np.float32)  # cosines
+        args = (np.arange(nq), scores, rng.permutation(nq),
+                rng.permutation(N_TRAIN))
+        native.write_prefilter_native.calls = 0
+        native.read_result_records_native.calls = 0
+        secs = {}
+        t0 = time.perf_counter()
+        mmseqs_format.write_prefilter_db(hits, out / "pf_native", *args)
+        secs["write native"] = time.perf_counter() - t0
+        with python_io_route(native):
+            t0 = time.perf_counter()
+            mmseqs_format.write_prefilter_db(hits, out / "pf_python", *args)
+            secs["write python"] = time.perf_counter() - t0
+        pf_bytes = 0
+        for suffix in (".0", ".index", ".dbtype"):
+            got = Path(f"{out / 'pf_native'}{suffix}").read_bytes()
+            want = Path(f"{out / 'pf_python'}{suffix}").read_bytes()
+            assert got == want, f"phase 13: {nq} x {k} {suffix} differs"
+            pf_bytes += len(got)
+
+        aln = out / "aln"
+        aln_bytes = write_alignment_db(aln, (hits != -1).sum(1), rng)
+        t0 = time.perf_counter()
+        got = mmseqs_format.read_result_records(aln)
+        secs["read native"] = time.perf_counter() - t0
+        with python_io_route(native):
+            t0 = time.perf_counter()
+            want = mmseqs_format.read_result_records(aln)
+            secs["read python"] = time.perf_counter() - t0
+        calls = (native.write_prefilter_native.calls,
+                 native.read_result_records_native.calls)
+        assert calls == (1, 1), f"phase 13: native route calls {calls}"
+        assert np.array_equal(got[0], want[0]), "phase 13: query ids differ"
+        for name, a, b in (("targets", got[1], want[1]),
+                           ("E-values", got[2], want[2])):
+            assert [len(x) for x in a] == [len(x) for x in b], name
+            assert np.array_equal(np.concatenate(a), np.concatenate(b)), (
+                f"phase 13: {nq} x {k} {name} differ")
+        entries = int((hits != -1).sum())
+        assert sum(len(a) for a in got[1]) == entries
+        log(f"phase 13 MMseqs2 I/O {nq} x {k} ({entries} hits): prefilter"
+            f" DB {pf_bytes} bytes, write native"
+            f" {secs['write native']:.3f} s / python"
+            f" {secs['write python']:.3f} s, bytes equal; alignment DB"
+            f" {aln_bytes} bytes, read native {secs['read native']:.3f} s /"
+            f" python {secs['read python']:.3f} s, arrays equal; native"
+            f" calls (write, read) {calls} | {card}")
+        for path in out.iterdir():
+            path.unlink()
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s (data and"
+        " comparisons included)")
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3072,6 +3194,10 @@ def main() -> None:
         run_sharded(train, test, train_seqs, test_seqs, kernels, args.seed,
                     tmp)
     del train, test
+
+    # ---- phase 13: the MMseqs2 record I/O on the host
+    with tempfile.TemporaryDirectory(prefix="knn_mmseqs_") as tmp:
+        run_mmseqs_io(args.seed, tmp, card)
 
     log(card)
     print(json.dumps({"kernels": [kernels[k] for k in "ABCDEFGHIJK"]}))

@@ -8,6 +8,10 @@ result databases are parsed back into hit/E-value arrays
 MMseqs2 *sequence databases* directly (the reference shells out to
 `mmseqs createdb` for those, reference: mmseqs/_create_sequence_dbs.py:12),
 so the bridge works end-to-end without the binary until alignment time.
+
+A C++ fast path for record parsing/formatting lives in interop/native; the
+pure-Python implementations here are the reference implementation and
+fallback.
 """
 
 from pathlib import Path
@@ -94,6 +98,14 @@ def write_prefilter_db(
     if clip:
         scores_int = np.clip(scores_int, -1e30, 1e30)
     scores_int = scores_int * 100
+
+    from .native import write_prefilter_native
+
+    if write_prefilter_native(
+        prefilter_db, hits, queries, scores_int, test_to_mmseqs,
+        train_to_mmseqs,
+    ):
+        return
 
     with open(str(prefilter_db) + ".0", "wb") as data, open(
         str(prefilter_db) + ".index", "w"
@@ -202,6 +214,12 @@ def read_result_records(
     """Raw parse: (mmseqs query ids [N], per-query target-id arrays,
     per-query E-value arrays). E-values come from `e_value_column` when a
     record line has that many columns (alignment format), else 0."""
+    from .native import read_result_records_native
+
+    out = read_result_records_native(result_db, e_value_column)
+    if out is not None:
+        return out
+
     index = _read_index(result_db)
     targets: List[np.ndarray] = []
     evalues: List[np.ndarray] = []

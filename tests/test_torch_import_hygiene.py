@@ -33,6 +33,8 @@ assert not leaked, leaked
 assert not torch.cuda.is_initialized(), "a module initialised CUDA at import"
 from knn_for_homology_tpu_torch.ops import _build
 assert not _build._LIB, "a module loaded the kernel library at import"
+from knn_for_homology_tpu_torch.interop import native
+assert not native._TRIED, "a module built the native I/O library at import"
 assert torch.backends.cuda.matmul.allow_tf32 is False
 assert torch.backends.cudnn.allow_tf32 is False
 print("OK", len({modules!r}))
@@ -55,7 +57,8 @@ def test_port_modules_are_all_listed():
                  "models.bert", "models.xlnet", "models.unirep",
                  "models.plus_rnn", "models.cpcprot", "models.module",
                  "parallel.__init__", "parallel.mesh", "parallel.sharded",
-                 "parallel.scale", "parallel.encoder_sharding", "entry"):
+                 "parallel.scale", "parallel.encoder_sharding", "entry",
+                 "interop.native.__init__"):
         assert f"knn_for_homology_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 15
 
