@@ -28,6 +28,7 @@ import torch
 
 from ..config import DEFAULT_TOKEN_BATCH, MAX_SEQ_LEN
 from ..device import resolve_device
+from ..utils.trace import span
 from . import bert, cpcprot, elmo, plus_rnn, t5, unirep, xlnet
 from .batching import Batch, make_batches, pad_tokens
 from .convert import (
@@ -133,12 +134,14 @@ class ProtT5Embedder(BatchedEmbedder):
     def _tokens(self, batch: Batch):
         """(ids, mask, residue mask) on the device; the residue mask drops
         EOS, so pooling averages residues only."""
-        tokens = [t5.tokenize(s, self.vocab) for s in batch.sequences]
-        ids, mask = pad_tokens(tokens, batch.padded_len, t5.PAD_ID)
-        res_mask = mask.copy()
-        for row, seq in enumerate(batch.sequences):
-            res_mask[row, len(seq) :] = False
-        return _on(self.device, ids, mask, res_mask)
+        with span("embed.tokenize"):
+            tokens = [t5.tokenize(s, self.vocab) for s in batch.sequences]
+            ids, mask = pad_tokens(tokens, batch.padded_len, t5.PAD_ID)
+            res_mask = mask.copy()
+            for row, seq in enumerate(batch.sequences):
+                res_mask[row, len(seq) :] = False
+        with span("embed.h2d"):
+            return _on(self.device, ids, mask, res_mask)
 
     def batches(self, sequences: Sequence[str]) -> List[Batch]:
         return make_batches(sequences, self.token_budget, self.max_len)
@@ -156,19 +159,34 @@ class ProtT5Embedder(BatchedEmbedder):
         """[rows, d] fp32 pooled vectors of one batch, on the device."""
         ids, mask, res_mask = self._tokens(batch)
         pool = l2_then_mean_pool if self.l2_per_residue else mean_pool
-        return pool(self.encoder(ids, mask), res_mask)
+        with span("embed.encode"):
+            hidden = self.encoder(ids, mask)
+        with span("embed.pool"):
+            return pool(hidden, res_mask)
 
     def embed_pooled(self, sequences: Sequence[str]) -> np.ndarray:
         """Pooled on the device (masked mean; the L2 variant normalises
         first), returned in input order."""
         if not sequences:
             return np.zeros((0, self.dim), dtype=np.float32)
-        results: List[Optional[np.ndarray]] = [None] * len(sequences)
-        for batch in self.batches(sequences):
-            pooled = self.pooled_batch(batch).cpu().numpy()
-            for idx, row in zip(batch.indices, pooled):
-                results[idx] = row
-        return np.stack(results)
+        with span("embed"):
+            with span("embed.batching"):
+                batches = self.batches(sequences)
+            outputs = []
+            for batch in batches:
+                with span("embed.batch") as sp:
+                    if sp:
+                        sp.count(residues=sum(map(len, batch.sequences)),
+                                 tokens=len(batch.indices) * batch.padded_len)
+                    pooled = self.pooled_batch(batch)
+                    with span("embed.d2h"):
+                        outputs.append(pooled.cpu().numpy())
+            with span("embed.unsort"):
+                results: List[Optional[np.ndarray]] = [None] * len(sequences)
+                for batch, pooled in zip(batches, outputs):
+                    for idx, row in zip(batch.indices, pooled):
+                        results[idx] = row
+                return np.stack(results)
 
 
 def _no_checkpoint(name: str) -> ValueError:

@@ -28,6 +28,7 @@ from ..device import resolve_device
 from ..ops.distance import METRICS, finalize_scores, l2_normalize
 from ..ops.packed_cuda import quantize_database
 from ..ops.topk import flat_topk, plain_topk
+from ..utils.trace import span
 
 BACKENDS = ("auto", "plain", "approx", "sq8")
 
@@ -62,7 +63,11 @@ class FlatIndex:
         return None if self._db is None else self._db.shape[1]
 
     def _to_device(self, x) -> torch.Tensor:
-        x = torch.as_tensor(np.asarray(x)).to(self.device, torch.float32)
+        x = np.asarray(x)
+        with span("flat.h2d") as sp:
+            if sp:
+                sp.count(bytes=x.nbytes)
+            x = torch.as_tensor(x).to(self.device, torch.float32)
         if self.metric == "cosine":
             x = l2_normalize(x)
         return x.contiguous()
@@ -102,12 +107,17 @@ class FlatIndex:
         distances; missing hits are id -1."""
         if self._db is None:
             raise ValueError("index is empty; call add() first")
-        return self._search_prepared(self._to_device(queries), k)
+        with span("flat.search"):
+            return self._search_prepared(self._to_device(queries), k)
 
     def _search_prepared(self, q: torch.Tensor, k: int):
         sims, ids = self._topk(q, k)
         scores = finalize_scores(sims, self.metric)
-        return scores.cpu().numpy(), ids.cpu().numpy()
+        with span("flat.d2h") as sp:
+            out = scores.cpu().numpy(), ids.cpu().numpy()
+            if sp:
+                sp.count(bytes=out[0].nbytes + out[1].nbytes)
+        return out
 
     # --- persistence payload (see search/io.py) ---
     def state(self) -> dict:
