@@ -298,6 +298,21 @@ def decode_packed(
     return torch.where(empty, NEG_INF, vals), torch.where(empty, -1, ids)
 
 
+def packed_plan(
+    n: int, k_eff: int, db_tile: int = None, recall_target: float = 0.95
+) -> Tuple[int, int, int]:
+    """(W, R, query block) of `packed_topk` over n rows at k_eff: the
+    reference planner's W and R, and the most queries a launch takes, which
+    the [QB, R·W] buffer and its int64 decode keys bound."""
+    if db_tile is None:
+        db_tile = default_db_tile(k_eff, n, exact=False)
+    db_tile, r_slots = plan(
+        n, k_eff, db_tile, exact=False, recall_target=recall_target
+    )
+    max_block = max(32, CANDIDATE_BYTES // (r_slots * db_tile * 12))
+    return db_tile, r_slots, max_block
+
+
 def packed_topk(
     db,
     queries: torch.Tensor,
@@ -332,17 +347,14 @@ def packed_topk(
             torch.zeros((0, k), dtype=torch.int32, device=queries.device),
         )
     k_eff = min(k, n)
-    if db_tile is None:
-        db_tile = default_db_tile(k_eff, n, exact=False)
     if storage not in STORAGES:
         raise ValueError(f"unknown storage {storage!r}")
     if storage in SYM_STORAGES and metric == "l2":
         # the query scale enters l2's 2qd − |q|² − |d|² per row, so it is
         # not a rank-neutral factor: l2 keeps the asymmetric kernel
         storage = "sq8"
-    db_tile, r_slots = plan(
-        n, k_eff, db_tile, exact=False, recall_target=recall_target
-    )
+    db_tile, r_slots, max_block = packed_plan(n, k_eff, db_tile,
+                                              recall_target)
     jbits = pass_bits(n, db_tile)
     scales = None
     if storage == "native":
@@ -357,8 +369,6 @@ def packed_topk(
                 " (or an SQ8Database from quantize_database)"
             )
         db, scales = quantize_int8(db.to(torch.float32), reciprocal=True)
-    # the [QB, R·W] buffer and its int64 decode keys bound the query block
-    max_block = max(32, CANDIDATE_BYTES // (r_slots * db_tile * 12))
     vals_out, ids_out = [], []
     for s in range(0, q_n, max_block):
         block = queries[s : s + max_block]

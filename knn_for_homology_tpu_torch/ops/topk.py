@@ -34,6 +34,9 @@ NEG_INF = float("-inf")
 # multi-GB database.
 ONESHOT_SIM_BYTES = 4 << 30
 
+QUERY_BLOCK = 4096  # queries a block of plain_topk, unless one-shot halves it
+APPROX_EXACT_K = 32  # approx searches up to this k take the exact route
+
 
 def stable_topk(sims: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(vals, idx) of the k largest per row; ties → lower column first."""
@@ -119,7 +122,7 @@ def plain_topk(
     k: int,
     metric: str = "cosine",
     db_tile: int = 8192,
-    query_block: int = 4096,
+    query_block: int = QUERY_BLOCK,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k in plain PyTorch, on either device: blocks queries and
     picks one-shot vs streaming per block by similarity-buffer size."""
@@ -151,7 +154,7 @@ def flat_topk(
     approx: bool = False,
     recall_target: float = 0.95,
     db_tile: int = 8192,
-    query_block: int = 4096,
+    query_block: int = QUERY_BLOCK,
     storage: str = "native",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Strategy dispatcher. Returns (sims, ids) in the internal
@@ -190,7 +193,7 @@ def flat_topk(
         )
     if storage != "native":
         raise ValueError(f"unknown storage {storage!r}")
-    if approx and k > 32:
+    if approx and k > APPROX_EXACT_K:
         return packed_topk(
             db, queries, k, metric=metric, recall_target=recall_target
         )

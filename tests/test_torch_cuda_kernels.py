@@ -488,6 +488,31 @@ def test_flat_index_backends_launch_their_kernel(cuda, backend, metric, k,
     np.testing.assert_array_equal(got[0], want[0])
 
 
+def test_flat_search_pipelined_copies(cuda, monkeypatch):
+    """A search of three blocks (the block size patched to 1000 queries)
+    stages its queries through page-locked buffers and copies on a side
+    stream: it returns page-locked arrays of its own, which a second search
+    leaves untouched, equal bit for bit to the one-block route's."""
+    rng = np.random.RandomState(11)
+    db = rng.randn(20000, 256).astype(np.float32)
+    qs = rng.randn(2500, 256).astype(np.float32)
+    index = FlatIndex("cosine", backend="sq8", device="cuda").add(db)
+    want = index.search(qs, 300)
+    monkeypatch.setattr(FlatIndex, "_block_rows", lambda self, k: 1000)
+    before = FlatIndex.copy_routes["pipelined"]
+    first = index.search(qs, 300)
+    assert FlatIndex.copy_routes["pipelined"] == before + 1
+    kept = [a.copy() for a in first]
+    second = index.search(qs[::-1].copy(), 300)
+    for a, b, c, w in zip(first, kept, second, want):
+        assert torch.from_numpy(a).is_pinned()
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert not np.shares_memory(a, c)
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, w)
+        np.testing.assert_array_equal(c, w[::-1])
+
+
 def _slab_table(seed, c, d, fill, device, deg_p=128, degree=None):
     """Packed slabs of Gaussian rows: `c` groups of `fill` members each
     (the rest padding), d not a multiple of 128 so the lane padding runs."""

@@ -5,7 +5,11 @@ written by either package load in the other.
 Scores agree within rtol 1e-5 and an absolute 1e-6 of the operands' scale
 (|q|·|d| for ip, |q|² + |d|² for l2, 1 for cosine): torch's CPU matmul and
 XLA sum in different orders, and the clustered fixture's raw vectors have
-norms near 56, so a score near 0 carries the rounding of terms near 3000."""
+norms near 56, so a score near 0 carries the rounding of terms near 3000.
+
+A search of several blocks (the block size patched small) returns the
+one-block search's answers bit for bit, but for the plain backend's scores:
+there a CPU matmul of another row count may round differently."""
 
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from knn_for_homology_tpu.ops import topk as jtopk
 from knn_for_homology_tpu.search import io as jio
 from knn_for_homology_tpu_torch.device import resolve_device
 from knn_for_homology_tpu_torch.ops import topk as ttopk
+from knn_for_homology_tpu_torch.ops.packed_cuda import packed_plan
 from knn_for_homology_tpu_torch.search import flat as tflat
 from knn_for_homology_tpu_torch.search import graph as tgraph
 from knn_for_homology_tpu_torch.search import io as tio
@@ -74,6 +79,63 @@ def test_search_self_matches_jax(clustered):
     got = tflat.FlatIndex(device="cpu").add(train).search_self(5)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_allclose(got[1], want[1], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("backend", ["auto", "plain", "approx", "sq8"])
+@pytest.mark.parametrize("metric", ["cosine", "ip", "l2"])
+@pytest.mark.parametrize("q_n, k", [(9, 13), (100, 40), (300, 60),
+                                    ("self", 5), ("self", 40)])
+def test_blocked_search_equals_one_block(clustered, monkeypatch, backend,
+                                         metric, q_n, k):
+    """Blocks of 7 queries: 9-300 queries (or the 48 rows' self-search) in
+    several blocks, the last one short; k = 60 > 48 rows pads with -1. Each
+    call counts its route once."""
+    train = clustered.load_train()
+    rng = np.random.RandomState(k)
+    index = tflat.FlatIndex(metric, backend=backend, device="cpu").add(train)
+    if q_n == "self":
+        def run():
+            return index.search_self(k)[::-1]
+        queries = train
+    else:
+        queries = (train[rng.randint(len(train), size=q_n)]
+                   + rng.randn(q_n, train.shape[1]).astype(np.float32))
+
+        def run():
+            return index.search(queries, k)
+    routes = dict(tflat.FlatIndex.copy_routes)
+    want = run()
+    monkeypatch.setattr(tflat.FlatIndex, "_block_rows", lambda self, k: 7)
+    got = run()
+    assert {r: tflat.FlatIndex.copy_routes[r] - routes[r] for r in routes} \
+        == {"pipelined": 1, "direct": 1}
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    if backend == "plain":
+        _same(got, want, _scale(metric, train, queries))
+    else:
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    if k > len(train):
+        assert np.all(want[1][:, len(train):] == -1)
+        assert np.all(np.isinf(want[0][:, len(train):]))
+
+
+@pytest.mark.parametrize("backend, k, inner", [
+    ("auto", 1000, ttopk.QUERY_BLOCK), ("plain", 13, ttopk.QUERY_BLOCK),
+    ("approx", 13, ttopk.QUERY_BLOCK), ("approx", 1000, None),
+    ("sq8", 13, None), ("sq8", 1000, None)])
+def test_block_rows_are_whole_route_blocks(backend, k, inner):
+    """A block is a whole multiple of the route's own query block (packed
+    routes: packed_topk's launch block), and one search of a few hundred
+    queries stays a single block."""
+    n, d = 131080, 8
+    index = tflat.FlatIndex(backend=backend, device="cpu")
+    index._db = torch.zeros((n, d))
+    if inner is None:
+        inner = packed_plan(n, k, recall_target=index.config.recall_target)[2]
+    rows = index._block_rows(k)
+    assert rows % inner == 0 and rows >= 256
 
 
 def test_add_twice_and_dims(clustered):

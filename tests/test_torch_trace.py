@@ -110,14 +110,24 @@ def test_embed_counts_equal_make_batches(embedder):
                       for b in batches]
 
 
-@pytest.mark.parametrize("backend", ["auto", "sq8"])
-def test_search_span_tree_and_bytes(backend):
+@pytest.mark.parametrize("backend, blocks", [
+    pytest.param(backend, blocks, id=backend + ("" if blocks == 1 else "-3"))
+    for blocks in (1, 3) for backend in ("auto", "sq8")])
+def test_search_span_tree_and_bytes(backend, blocks, monkeypatch):
+    """One search, in one block or in three (the block size patched small):
+    one copy span each way, apart, with the whole call's bytes."""
+    if blocks > 1:
+        monkeypatch.setattr(FlatIndex, "_block_rows", lambda self, k: 4)
     index = flat_index(backend)
     queries = np.random.RandomState(6).randn(9, 32).astype(np.float32)
+    routes = dict(FlatIndex.copy_routes)
     (scores, ids), spans = traced(lambda: index.search(queries, 11))
+    route = "direct" if blocks == 1 else "pipelined"
+    assert FlatIndex.copy_routes[route] == routes[route] + 1
     assert [s.name for s in spans] == ["flat.search", "flat.h2d", "flat.d2h"]
     assert [s.parent for s in spans] == [-1, 0, 0]
     assert [s.call for s in spans] == [0, 0, 0]
+    assert spans[1].t1 <= spans[2].t0
     assert spans[0].counts == {}
     assert spans[1].counts == {"bytes": queries.nbytes}
     assert spans[2].counts == {"bytes": scores.nbytes + ids.nbytes}
