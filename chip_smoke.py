@@ -41,13 +41,17 @@ path; and the MMseqs2 record I/O. Phases:
      for the flash route) in 7000-token batches, then l2 and a FlatIndex
      k = 13 search, launch counts reset just before (G, H, A); an opt-in
      short-attention run (I); device time by kernel over warm batches;
-     the kernels' route against the plain versions' on 32 proteins;
+     the kernels' route against the plain versions' on 32 proteins; then
+     ProtXLNet-UniRef100 in bf16 (kernel L) embeds the same proteins, L
+     launched once a layer a batch, 8 of them held to its fp32 route;
   9. the full-protein path (pipelines.pfam_proteins.run, the all-vs-all
      k = 1000 search) over phase 4's 131072 x 1024 vectors as full-protein
      embeddings, one domain (the family) per protein, launch counts reset
      just before each mode: the graph index (the pipeline's default: the
      exact kNN graph through kernel B, then 62 beam steps a query block,
-     each one call of kernel K; its build steps timed apart), the IVF
+     each one call of kernel K, the block one captured CUDA graph: K counts
+     the launches of a capture's eager warm-up, GraphIndex.graph_replays
+     the replays; its build steps timed apart), the IVF
      index (kernel J, the union scan with sym2) and the flat index (kernel
      B); an online batch of 256 queries at k = 10 through the IVF
      per-probe path (kernel K's tile route) against the flat exact
@@ -122,7 +126,8 @@ similarity, which splits that proxy's time between products and inserts. A's and
 phase that runs them (launches_by_phase). Phase 3 also holds the encoder's
 kernels at full width: G at 7000 tokens x
 1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128 and
-27 x 32 x 256 x 128 (H and I fed the [H, 2L-1] offset-bias table); and the
+27 x 32 x 256 x 128 (H and I fed the [H, 2L-1] offset-bias table), L at
+2 x 16 x 3098 x 64 (one row 2002 tokens; R one row off must fail); and the
 IVF path's kernels: J at 1024 queries x 256 cells (32768 rows) x 1024, k =
 1000 (sym and sym2, buffers bit-equal); K at 32 probes x 128 x 1024 and
 four sharing levels of the probed nodes: (a) 4096 queries uniform over the
@@ -287,7 +292,7 @@ ROUNDTRIP_ROWS = 16384
 # phases 3 and 9: the full-protein pipeline's graph index,
 # GraphIndex(cosine, degree=42, beam_width=256) (pipelines/pfam_proteins.py);
 # at k = 1000 a query block runs iters = 62 beam steps, each one call of
-# kernel K. Phase 3 records K's probe lists at GRAPH_STEPS of the first
+# kernel K (in the capture's warm-up; a replay repeats them). Phase 3 records K's probe lists at GRAPH_STEPS of the first
 # block of phase 4's vectors (in family order, as the pipeline searches
 # them) and holds K to plain on them, as its other cases
 GRAPH_DEGREE, GRAPH_BEAM = 42, 256
@@ -972,6 +977,69 @@ def check_encoder_kernels(kernels, seed):
             " block(s) per SM")
 
 
+def check_xlnet_kernel(kernels, seed):
+    """Phase 3 for kernel L at `protxlnet.long`'s longest batch, 2 x 16
+    heads x 3098 x 64 with one row 2002 tokens long (padded keys masked,
+    padded query rows finite), R the middle of three layers' columns of one
+    [2L, layers x H x 64] product (as the encoder passes it): against its
+    plain version (BF16_TOL), and R one row off, which must fail that
+    tolerance four times over; timed beside its bound (6·B·H·L²·64 bf16
+    operations: the content term, the position term, PV) and beside SDPA
+    without the position term, the yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from knn_for_homology_tpu_torch.ops import relattn_cuda
+    from knn_for_homology_tpu_torch.ops.relative_attention import (
+        relative_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed + 8)
+    b, h, l, dh, lengths = 2, 16, 3098, 64, [3098, 2002]
+
+    def randn(*shape, scale=1.0):
+        out = torch.randn(shape, generator=gen, device=dev) * scale
+        return out.to(torch.bfloat16)
+
+    q, k, v = (randn(b, h, l, dh) for _ in range(3))
+    r = randn(2 * l, 3 * h * dh)[:, h * dh:2 * h * dh].view(2 * l, h, dh)
+    r_w, r_r = randn(h, dh, scale=0.5), randn(h, dh, scale=0.5)
+    mask = torch.arange(l, device=dev)[None] < torch.tensor(
+        lengths, device=dev)[:, None]
+    args = (q, k, v, r, r_w, r_r, mask)
+    before = relattn_cuda.relative_attention.launches
+    got = relattn_cuda.relative_attention(*args)
+    assert relattn_cuda.relative_attention.launches == before + 1
+    want = relative_attention_plain(*args, block=64)
+    err = check_bf16("L", got, want)
+    shifted = torch.cat([r[1:], torch.zeros_like(r[:1])])
+    fault = relattn_cuda.relative_attention(q, k, v, shifted, r_w, r_r, mask)
+    fault_err = float((fault.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert fault_err > 4 * BF16_TOL * scale, (
+        f"L: R one row off reads {fault_err}, within the tolerance")
+    ms = cuda_ms(lambda: relattn_cuda.relative_attention(*args))
+    plain_ms = cuda_ms(lambda: relative_attention_plain(*args, block=64))
+    attn = torch.where(mask, 0.0, -1e9)[:, None, None, :].to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn, scale=dh**-0.5))
+    ops = 6 * b * h * l * l * dh
+    kernels["L"] = dict(
+        name="flash_xlnet", route="cuda",
+        source="knn_for_homology_tpu_torch/csrc/flash_xlnet.cu",
+        replaces=None, max_abs_err=err, shifted_r_err=fault_err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms,
+        library="scaled_dot_product_attention (no position term)",
+        **bound(ops, "bf16", tensor_bytes(q, k, v, r, r_w, r_r, mask, got)),
+    )
+    kv = kernels["L"]
+    log(f"phase 3 kernel L flash_xlnet [B={b}, H={h}, L={l}, dh={dh}, rows"
+        f" {lengths}]: max_abs_err {err:.3g} (R one row off: {fault_err:.3g}),"
+        f" {ms:.3f} ms vs plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms,"
+        f" bound {kv['bound_ms']:.3f} ms ({kv['bound_by']})")
+
+
 def check_ivf_kernels(db, q_all, kernels, seed):
     """Phase 3 for kernels J and K on a slab table of the phase-9 layout
     (IVF_CELLS cells of IVF_FILL members of db, packed as the index packs
@@ -1141,8 +1209,10 @@ def recorded_k_calls(steps):
     graph beam search passes them, kept for the length of the block. The
     search's view of ops/slab_cuda.py becomes a copy whose beam_expand
     records, then calls the real one (which counts its launches on
-    itself)."""
+    itself); a call inside a capture is neither kept nor counted."""
     import types
+
+    import torch
 
     from knn_for_homology_tpu_torch.ops import slab_cuda
     from knn_for_homology_tpu_torch.search import graph as graph_mod
@@ -1153,6 +1223,8 @@ def recorded_k_calls(steps):
     kept = Kept()
 
     def recorder(*args):
+        if torch.cuda.is_current_stream_capturing():
+            return slab_cuda.beam_expand(*args)
         if kept.calls in steps:
             kept[kept.calls] = (args[0].clone(),) + args[1:]
         kept.calls += 1
@@ -1344,6 +1416,7 @@ def run_ivf_path(train, test, kernels):
         for mod, name in counters.values():
             getattr(mod, name).launches = 0
         slab_cuda.beam_expand.routes = dict.fromkeys(slab_cuda.ROUTES, 0)
+        GraphIndex.graph_replays = 0
         for key in packed_cuda.segment_packed_kernel.launches:
             packed_cuda.segment_packed_kernel.launches[key] = 0
         torch.cuda.synchronize()
@@ -1354,6 +1427,7 @@ def run_ivf_path(train, test, kernels):
                for key, (mod, name) in counters.items()}
         out.update(packed_cuda.segment_packed_kernel.launches)
         out["K by route"] = dict(slab_cuda.beam_expand.routes)
+        out["graph replays"] = GraphIndex.graph_replays
         return out
 
     metrics, walls, peaks, by_mode, step_s = {}, {}, {}, {}, {}
@@ -1434,6 +1508,12 @@ def run_ivf_path(train, test, kernels):
             m: c[key] for m, c in by_mode.items()}
     kernels["K"]["routes_by_mode"] = {m: c["K by route"]
                                       for m, c in by_mode.items()}
+    # K's counters count its eager launches (a captured block's warm-up);
+    # the graph index's replays of captured blocks are counted apart
+    kernels["K"]["graph_replays_by_mode"] = {m: c["graph replays"]
+                                             for m, c in by_mode.items()}
+    assert by_mode["graph"]["graph replays"] > 0, (
+        "the graph mode replayed no captured block")
 
     for mode, m in metrics.items():
         assert math.isfinite(m["auc1"]) and 0 < m["auc1"] <= 1, (mode, m)
@@ -2032,6 +2112,66 @@ def run_encoder(kernels, seed):
         f" {rows_.size} of {ids_g.size} slots, all near-ties within {tie:.3g}")
 
 
+def run_xlnet(kernels, seed):
+    """Phase 8 for ProtXLNet-UniRef100 at its published widths in bf16
+    (the `protxlnet.long` cell's route; weights from models/xlnet.py's
+    init_params): `embed_pooled` of phase 8's proteins (the length mix and
+    the four long ones, 7000-token batches) through the registry, kernel L
+    launched once a layer a batch; then 8 of them, the longest among them,
+    against the fp32 route (use_kernel=False) on the card."""
+    import torch
+
+    from knn_for_homology_tpu_torch.models import xlnet
+    from knn_for_homology_tpu_torch.models.registry import get_embedder
+    from knn_for_homology_tpu_torch.ops import relattn_cuda
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="knn_xlnet_") as tmp:
+        _, _, train_seqs, test_seqs = write_dataset(
+            Path(tmp), seed + 2, n_fam=ENC_FAMILIES, per_train=ENC_TRAIN, dim=8
+        )
+    rng = np.random.RandomState(seed + 3)
+    seqs = train_seqs + test_seqs + [AAS[rng.randint(0, 20, n)].tobytes()
+                                     .decode() for n in LONG_LENGTHS]
+    config = dataclasses.replace(xlnet.PROTXLNET, dtype=torch.bfloat16)
+    params = xlnet.init_params(config, seed=seed, device=dev)
+    embedder = get_embedder("ProtXLNet UniRef100", config=config,
+                            params=params, token_budget=TOKEN_BUDGET,
+                            device=dev)
+    batches = embedder.batches(seqs)
+    residues = sum(min(len(s), embedder.max_len) for s in seqs)
+    embedder.embed_pooled(seqs[:1])  # cuBLAS warm
+    relattn_cuda.relative_attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pooled = embedder.embed_pooled(seqs)
+    embed_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = relattn_cuda.relative_attention.launches
+    assert launches == config.num_layers * len(batches), (
+        f"kernel L: {launches} launches for {len(batches)} batches")
+    assert pooled.shape == (len(seqs), config.d_model)
+    assert np.isfinite(pooled).all()
+    kernels["L"]["launches"] = launches
+    kernels["L"]["launches_by_phase"] = {"8": launches}
+    subset = test_seqs[:7] + [max(seqs, key=len)]
+    plain = get_embedder(
+        "ProtXLNet UniRef100", params=params, token_budget=TOKEN_BUDGET,
+        config=dataclasses.replace(xlnet.PROTXLNET, use_kernel=False),
+        device=dev)
+    cos, rel = check_pooled("ProtXLNet bf16 vs fp32",
+                            embedder.embed_pooled(subset),
+                            plain.embed_pooled(subset))
+    log(f"phase 8 ProtXLNet bf16: {len(seqs)} proteins, {residues} residues,"
+        f" {len(batches)} batches | embed {embed_s:.3f} s"
+        f" ({residues / embed_s:.0f} residues/s) | peak {peak / 2**30:.2f} GiB"
+        f" | kernel L launches {launches} = {config.num_layers} x"
+        f" {len(batches)} | pooled vs the fp32 route on {len(subset)}"
+        f" proteins: cosine min {cos:.6f}, relative L2 error max"
+        f" {rel.max():.4g} (longest, {len(subset[-1])} aa: {rel[-1]:.4g})")
+
+
 def other_padded_tokens(key, embedder, seqs):
     """(batches, padded tokens) the encoder of `key` takes for `seqs`: its
     own batching and each family's input width."""
@@ -2306,6 +2446,7 @@ def kernel_counters():
         flat_cuda,
         ivf_cuda,
         packed_cuda,
+        relattn_cuda,
         short_cuda,
         slab_cuda,
     )
@@ -2316,7 +2457,8 @@ def kernel_counters():
              "H": flash_cuda.flash_attention_t5,
              "I": short_cuda.short_attention_t5,
              "J": ivf_cuda.segment_packed_indirect_kernel,
-             "K": slab_cuda.beam_expand}
+             "K": slab_cuda.beam_expand,
+             "L": relattn_cuda.relative_attention}
     return plain, packed_cuda.segment_packed_kernel.launches
 
 
@@ -2332,7 +2474,7 @@ def read_kernel_counts() -> dict:
     plain, packed = kernel_counters()
     out = {key: fn.launches for key, fn in plain.items()}
     out.update(packed)
-    return {key: out[key] for key in "ABCDEFGHIJK"}
+    return {key: out[key] for key in "ABCDEFGHIJKL"}
 
 
 def recall_at(ids, exact_ids, k=10):
@@ -2547,7 +2689,7 @@ def check_ranks(tag, ranks, refs, wall, card) -> dict:
     assert pooled.shape == refs["pooled"].shape and np.isfinite(pooled).all()
     cos, rel = check_pooled(f"{tag} encode_sharded", pooled, refs["pooled"])
     launches = {key: sum(r["launches"][key] for r in ranks)
-                for key in "ABCDEFGHIJK"}
+                for key in "ABCDEFGHIJKL"}
     for key in "BJKGH":
         assert launches[key] > 0, f"{tag}: kernel {key} not launched"
     n, world = len(refs["db"]), len(ranks)
@@ -3040,6 +3182,7 @@ def main() -> None:
         f" {c_plain_ms:.3f} ms")
 
     check_encoder_kernels(kernels, args.seed)
+    check_xlnet_kernel(kernels, args.seed)
     check_ivf_kernels(db, q_all, kernels, args.seed)
     check_graph_kernel_k(train, kernels)
 
@@ -3173,6 +3316,7 @@ def main() -> None:
 
     # ---- phase 8: the encoder path
     run_encoder(kernels, args.seed)
+    run_xlnet(kernels, args.seed)
 
     # ---- phase 9: the IVF index path, on phase 4's vectors
     del db, q_all, index, plain
@@ -3200,7 +3344,7 @@ def main() -> None:
         run_mmseqs_io(args.seed, tmp, card)
 
     log(card)
-    print(json.dumps({"kernels": [kernels[k] for k in "ABCDEFGHIJK"]}))
+    print(json.dumps({"kernels": [kernels[k] for k in "ABCDEFGHIJKL"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

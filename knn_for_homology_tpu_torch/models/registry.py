@@ -72,17 +72,39 @@ class EmbedderBase:
 
 class BatchedEmbedder(EmbedderBase):
     """An encoder run over length-sorted batches: subclasses give
-    batches(sequences), run_batch(batch) → the batch's output on the device,
-    and residues(output, row, sequence) → that row's per-residue array."""
+    batches(sequences), run_batch(batch) → the batch's output on the device
+    (by default the encoder on token_arrays(batch)), and residues(output,
+    row, sequence) → that row's per-residue array.
+
+    One that sets `device_pools` gives token_arrays(batch) too (and
+    token_len(batch) where its rows are longer than the batch's padded
+    length): embed_pooled then pools each batch on the device (`pool`, a
+    masked mean) and copies only the pooled rows to the host; the others
+    average their per-residue arrays on the host (EmbedderBase)."""
+
+    device_pools = False
 
     def batches(self, sequences: Sequence[str]) -> List[Batch]:
         raise NotImplementedError
 
     def run_batch(self, batch: Batch) -> torch.Tensor:
-        raise NotImplementedError
+        ids, mask, _ = self._tokens(batch)
+        return self.encoder(ids, mask)
 
     def residues(self, output: np.ndarray, row: int, seq: str) -> np.ndarray:
         raise NotImplementedError
+
+    def token_arrays(self, batch: Batch):
+        """(ids, mask, residue mask) host arrays [rows, token_len(batch)]:
+        the encoder's input and the positions pooling averages."""
+        raise NotImplementedError
+
+    def token_len(self, batch: Batch) -> int:
+        """Tokens a row of the batch holds as the encoder sees it."""
+        return batch.padded_len
+
+    def pool(self, hidden: torch.Tensor, res_mask: torch.Tensor) -> torch.Tensor:
+        return mean_pool(hidden, res_mask)
 
     def embed_per_residue(self, sequences):
         results: List[Optional[np.ndarray]] = [None] * len(sequences)
@@ -94,6 +116,50 @@ class BatchedEmbedder(EmbedderBase):
                 results[idx] = self.residues(output, row, seq)
         yield from results
 
+    def _tokens(self, batch: Batch):
+        """token_arrays(batch) on the device."""
+        with span("embed.tokenize"):
+            arrays = self.token_arrays(batch)
+        with span("embed.h2d"):
+            return _on(self.device, *arrays)
+
+    def pooled_batch(self, batch: Batch) -> torch.Tensor:
+        """[rows, d] fp32 pooled vectors of one batch, on the device."""
+        ids, mask, res_mask = self._tokens(batch)
+        with span("embed.encode"):
+            hidden = self.encoder(ids, mask)
+        with span("embed.pool"):
+            return self.pool(hidden, res_mask)
+
+    def embed_pooled(self, sequences: Sequence[str]) -> np.ndarray:
+        """Pooled on the device where the embedder pools there, returned
+        in input order."""
+        if not self.device_pools:
+            return super().embed_pooled(sequences)
+        if not sequences:
+            return np.zeros((0, self.dim), dtype=np.float32)
+        with span("embed"):
+            with span("embed.batching"):
+                batches = self.batches(sequences)
+            outputs = []
+            for batch in batches:
+                with span("embed.batch") as sp:
+                    if sp:
+                        lengths = [len(s) for s in batch.sequences]
+                        rows, width = len(lengths), self.token_len(batch)
+                        sp.count(residues=sum(lengths), tokens=rows * width,
+                                 rows=rows, padded_len=width,
+                                 residues_sq=sum(n * n for n in lengths))
+                    pooled = self.pooled_batch(batch)
+                    with span("embed.d2h"):
+                        outputs.append(pooled.cpu().numpy())
+            with span("embed.unsort"):
+                results: List[Optional[np.ndarray]] = [None] * len(sequences)
+                for batch, pooled in zip(batches, outputs):
+                    for idx, row in zip(batch.indices, pooled):
+                        results[idx] = row
+                return np.stack(results)
+
 
 class ProtT5Embedder(BatchedEmbedder):
     """ProtT5 encoder with token-budget batching + optional L2 pooling
@@ -102,6 +168,7 @@ class ProtT5Embedder(BatchedEmbedder):
 
     name = "ProtT5 XL U50"
     dim = 1024
+    device_pools = True
 
     def __init__(
         self,
@@ -131,62 +198,26 @@ class ProtT5Embedder(BatchedEmbedder):
         self.max_len = max_len
         self.l2_per_residue = l2_per_residue
 
-    def _tokens(self, batch: Batch):
-        """(ids, mask, residue mask) on the device; the residue mask drops
-        EOS, so pooling averages residues only."""
-        with span("embed.tokenize"):
-            tokens = [t5.tokenize(s, self.vocab) for s in batch.sequences]
-            ids, mask = pad_tokens(tokens, batch.padded_len, t5.PAD_ID)
-            res_mask = mask.copy()
-            for row, seq in enumerate(batch.sequences):
-                res_mask[row, len(seq) :] = False
-        with span("embed.h2d"):
-            return _on(self.device, ids, mask, res_mask)
+    def token_arrays(self, batch: Batch):
+        """The residue mask drops EOS, so pooling averages residues only."""
+        tokens = [t5.tokenize(s, self.vocab) for s in batch.sequences]
+        ids, mask = pad_tokens(tokens, batch.padded_len, t5.PAD_ID)
+        res_mask = mask.copy()
+        for row, seq in enumerate(batch.sequences):
+            res_mask[row, len(seq) :] = False
+        return ids, mask, res_mask
 
     def batches(self, sequences: Sequence[str]) -> List[Batch]:
         return make_batches(sequences, self.token_budget, self.max_len)
-
-    def run_batch(self, batch: Batch) -> torch.Tensor:
-        """[rows, padded_len, d] hidden states on the device."""
-        ids, mask, _ = self._tokens(batch)
-        return self.encoder(ids, mask)
 
     @staticmethod
     def residues(output, row, seq):
         return output[row, : len(seq)]  # drop EOS and padding
 
-    def pooled_batch(self, batch: Batch) -> torch.Tensor:
-        """[rows, d] fp32 pooled vectors of one batch, on the device."""
-        ids, mask, res_mask = self._tokens(batch)
+    def pool(self, hidden, res_mask):
+        """Masked mean; the L2 variant normalises each residue first."""
         pool = l2_then_mean_pool if self.l2_per_residue else mean_pool
-        with span("embed.encode"):
-            hidden = self.encoder(ids, mask)
-        with span("embed.pool"):
-            return pool(hidden, res_mask)
-
-    def embed_pooled(self, sequences: Sequence[str]) -> np.ndarray:
-        """Pooled on the device (masked mean; the L2 variant normalises
-        first), returned in input order."""
-        if not sequences:
-            return np.zeros((0, self.dim), dtype=np.float32)
-        with span("embed"):
-            with span("embed.batching"):
-                batches = self.batches(sequences)
-            outputs = []
-            for batch in batches:
-                with span("embed.batch") as sp:
-                    if sp:
-                        sp.count(residues=sum(map(len, batch.sequences)),
-                                 tokens=len(batch.indices) * batch.padded_len)
-                    pooled = self.pooled_batch(batch)
-                    with span("embed.d2h"):
-                        outputs.append(pooled.cpu().numpy())
-            with span("embed.unsort"):
-                results: List[Optional[np.ndarray]] = [None] * len(sequences)
-                for batch, pooled in zip(batches, outputs):
-                    for idx, row in zip(batch.indices, pooled):
-                        results[idx] = row
-                return np.stack(results)
+        return pool(hidden, res_mask)
 
 
 def _no_checkpoint(name: str) -> ValueError:
@@ -384,9 +415,12 @@ class UniRepEmbedder(BatchedEmbedder):
 class XLNetEmbedder(BatchedEmbedder):
     """ProtXLNet-UniRef100 (models/xlnet.py): Transformer-XL relative
     attention; the specials (<sep> <cls>) sit at the END, so the
-    per-residue output is the first len(seq) positions."""
+    per-residue output is the first len(seq) positions. A bf16 config
+    serves through kernel L (models/xlnet.py's fused route); pooling is on
+    the device."""
 
     name = "ProtXLNet UniRef100"
+    device_pools = True
 
     def __init__(
         self,
@@ -421,11 +455,18 @@ class XLNetEmbedder(BatchedEmbedder):
     def batches(self, sequences: Sequence[str]) -> List[Batch]:
         return make_batches(sequences, self.token_budget, self.max_len)
 
-    def run_batch(self, batch: Batch) -> torch.Tensor:
-        """[rows, padded_len + 2, d] hidden states on the device."""
+    def token_len(self, batch: Batch) -> int:
+        return batch.padded_len + 2  # <sep> <cls>
+
+    def token_arrays(self, batch: Batch):
+        """The residue mask keeps the first len(seq) positions: the
+        specials sit after them."""
         tokens = [xlnet.tokenize(s, self.vocab) for s in batch.sequences]
-        ids, mask = pad_tokens(tokens, batch.padded_len + 2, xlnet.XLNET_PAD)
-        return self.encoder(*_on(self.device, ids, mask))
+        ids, mask = pad_tokens(tokens, self.token_len(batch), xlnet.XLNET_PAD)
+        res_mask = np.zeros_like(mask)
+        for row, seq in enumerate(batch.sequences):
+            res_mask[row, : len(seq)] = True
+        return ids, mask, res_mask
 
     @staticmethod
     def residues(output, row, seq):

@@ -9,6 +9,21 @@ relative position embeddings aligned by the reshape shift, post-LayerNorm
 residuals and an exact-GELU feed-forward. The segment term is skipped, as
 HF skips it when no token_type_ids are passed (bio_embeddings passes none).
 The special tokens <sep> <cls> sit at the END of a sequence.
+
+Routes, chosen per encode from `use_kernel` ("auto" resolves from the
+serving dtype):
+  * the fused route ("auto" with a bf16 dtype, or True): R for every layer
+    is one product of the sinusoid with all layers' W_r, made once per
+    encode (span `embed.relpos`); each layer's attention goes through
+    ops/relattn_cuda.py:relative_attention (kernel L on a CUDA tensor, its
+    plain version on a CPU tensor), with no [B, H, L, L] or [B, H, L, 2L]
+    tensor; q/k/v/o and the FFN (biases in the product) are cuBLAS products
+    in the serving dtype, each LayerNorm one F.layer_norm (fp32 inside,
+    one rounding), so few small launches sit between the products.
+  * the plain route ("auto" with fp32, the published weights' dtype, or
+    False): `_rel_attn`, the JAX package's formulation, with the dense
+    content and position scores, the reshape shift and a [B, 1, L, L] mask.
+Both let a padded key attend from its own row (XLNet's non_tgt_mask).
 """
 
 import math
@@ -20,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..utils.trace import span
 from .module import TreeEncoder
 
 Params = Dict[str, Any]
@@ -33,7 +49,8 @@ class XLNetConfig:
     num_layers: int = 30
     num_heads: int = 16
     layer_norm_eps: float = 1e-12
-    dtype: Any = torch.float32
+    dtype: Any = torch.float32  # the serving dtype
+    use_kernel: Any = "auto"  # "auto" (= on for bf16) | True | False
 
     @property
     def d_head(self) -> int:
@@ -62,17 +79,21 @@ def _rel_shift(x: torch.Tensor, klen: int) -> torch.Tensor:
     return x.reshape(b, n, i, j - 1)[:, :, :, :klen]
 
 
-def _sinusoid_pos_emb(length: int, d_model: int) -> np.ndarray:
+def sinusoid(length: int, d_model: int, device) -> torch.Tensor:
     """Relative positions L .. -L+1 (bidirectional attention span) →
-    [2L, d_model], built in float64 and cast to float32."""
-    inv_freq = 1.0 / (
-        10000.0 ** (np.arange(0, d_model, 2, dtype=np.float64) / d_model)
-    )
-    pos_seq = np.arange(length, -length, -1, dtype=np.float64)
-    sinusoid = np.outer(pos_seq, inv_freq)
-    return np.concatenate(
-        [np.sin(sinusoid), np.cos(sinusoid)], axis=-1
-    ).astype(np.float32)
+    [2L, d_model] on `device`, built in float64 and cast to float32."""
+    inv_freq = 1.0 / (10000.0 ** (
+        torch.arange(0, d_model, 2, dtype=torch.float64, device=device)
+        / d_model))
+    pos_seq = torch.arange(length, -length, -1, dtype=torch.float64,
+                           device=device)
+    angles = torch.outer(pos_seq, inv_freq)
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1).float()
+
+
+def _sinusoid_pos_emb(length: int, d_model: int) -> np.ndarray:
+    """`sinusoid` on the host, as a numpy array."""
+    return sinusoid(length, d_model, "cpu").numpy()
 
 
 def _rel_attn(x, pos_emb, mask_cost, p, config: XLNetConfig):
@@ -99,20 +120,59 @@ def _ff(x, p, config: XLNetConfig):
     return _layer_norm(x + h, p["ln_ff"], p["ln_ff_b"], config.layer_norm_eps)
 
 
+def fused_route(config: XLNetConfig) -> bool:
+    """True where encode takes kernel L's route (module docstring)."""
+    if config.use_kernel == "auto":
+        return config.dtype == torch.bfloat16
+    return bool(config.use_kernel)
+
+
+def _encode_fused(params, token_ids, mask, config: XLNetConfig):
+    """The fused route: kernel L (or its plain version) for attention."""
+    from ..ops.relattn_cuda import relative_attention
+
+    b, length = token_ids.shape
+    d, n, h = config.d_model, config.num_heads, config.d_head
+    layers = params["layers"]
+    x = params["embedding"][token_ids.long()].to(config.dtype)
+    with span("embed.relpos"):
+        pos_emb = sinusoid(length, d, x.device).to(config.dtype)
+        w_r = torch.cat([p["r"].reshape(d, n * h) for p in layers], dim=1)
+        r_all = torch.matmul(pos_emb, w_r)  # [2L, layers * H * d_head]
+    for i, p in enumerate(layers):
+        r = r_all[:, i * n * h:(i + 1) * n * h].view(2 * length, n, h)
+        q, k, v = (
+            torch.matmul(x, p[name].reshape(d, n * h)).view(b, length, n, h)
+            .transpose(1, 2).contiguous()
+            for name in ("q", "k", "v")
+        )
+        ctx = relative_attention(q, k, v, r, p["r_w_bias"], p["r_r_bias"],
+                                 mask)
+        ctx = ctx.transpose(1, 2).reshape(b * length, n * h)
+        out = torch.matmul(ctx, p["o"].reshape(d, n * h).t())
+        x = F.layer_norm(x + out.view(b, length, d), (d,), p["ln_attn"],
+                         p["ln_attn_b"], config.layer_norm_eps)
+        hidden = F.gelu(torch.addmm(p["ff_b1"], x.view(-1, d), p["ff_w1"]))
+        out = torch.addmm(p["ff_b2"], hidden, p["ff_w2"])
+        x = F.layer_norm(x + out.view(b, length, d), (d,), p["ln_ff"],
+                         p["ln_ff_b"], config.layer_norm_eps)
+    return x
+
+
 def encode(
     params: Params,
     token_ids: torch.Tensor,  # [B, L]
     mask: torch.Tensor,  # [B, L] True = real token
     config: XLNetConfig,
 ) -> torch.Tensor:
-    """Per-token hidden states [B, L, d_model]."""
+    """Per-token hidden states [B, L, d_model] in config.dtype."""
     mask = mask.bool()
+    if fused_route(config):
+        return _encode_fused(params, token_ids, mask, config)
     length = token_ids.shape[1]
     device = token_ids.device
     x = params["embedding"][token_ids.long()].to(config.dtype)
-    pos_emb = torch.from_numpy(
-        _sinusoid_pos_emb(length, config.d_model)
-    ).to(device=device, dtype=config.dtype)
+    pos_emb = sinusoid(length, config.d_model, device).to(config.dtype)
     # content stream: padded keys masked out, but the diagonal stays
     # attendable (HF's non_tgt_mask) so pad rows never go all -inf
     eye = torch.eye(length, dtype=torch.bool, device=device)

@@ -3,7 +3,7 @@
 Every `csrc/*.cu` compiles in its own nvcc process, all started together,
 and one more nvcc call links the objects into a shared library with a plain
 C interface (no PyTorch headers: seconds instead of minutes), against
-libcuda (`-lcuda`, for the TMA maps of kernels B and D-K; the
+libcuda (`-lcuda`, for the TMA maps of kernels B, D-K and L; the
 toolkit's stub at link time, the installed libcuda.so.1 at load time). The library
 lands in `build/torch_kernels/` at the repository root (git-ignored),
 named by a hash of the sources and flags (taken once per process), so an
@@ -81,6 +81,10 @@ SIGNATURES = {
     "knn_flash_t5": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, mask, table, out, b, h, l, stream
     "knn_short_t5": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, r, r row stride, mask, r_w, r_r, out, b, h, l, stream
+    "knn_flash_xlnet": [
+        _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _P,
+    ],
     # l -> blocks of kernel H / I that fit on one SM (the occupancy query)
     "knn_flash_t5_blocks_per_sm": [_I],
     "knn_short_t5_blocks_per_sm": [_I],

@@ -237,11 +237,14 @@ def beam_expand(
             _build.stream_ptr(q.device),
         )
         _build.check(code, "knn_slab_expand")
-    beam_expand.launches += 1
-    beam_expand.routes[route] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        beam_expand.launches += 1
+        beam_expand.routes[route] += 1
     return sims, nbrs
 
 
+# launches made on the spot: a call inside a CUDA graph's capture records
+# its launch into the graph and counts nothing (GraphIndex.graph_replays)
 beam_expand.launches = 0
 # launches by route; each call counts once in launches and once here
 beam_expand.routes = dict.fromkeys(ROUTES, 0)

@@ -342,6 +342,17 @@ class GraphIndex:
     QUERY_BLOCK = 4096
     RESCORE_SHARE = 0.125
     CPU_RESCORE_BYTES = 2e9
+    # On the card every query block runs its whole search (seeding, the
+    # beam loop, the rescore) as one CUDA graph: a block is ~600 small
+    # launches, which otherwise keep the card waiting on the host (an online
+    # batch of 256 queries: ~12 ms of launches for ~4 ms of kernels, PERF.md
+    # §5). A block is padded to a power of two, so one k has at most 13
+    # sizes; at most MAX_GRAPHS graphs are kept, the least recently used
+    # freed first, all in one memory pool an index.
+    MAX_GRAPHS = 16
+    # replays of captured blocks, by every index (kernel K's counters count
+    # only its eager launches: a replay does not pass through its wrapper)
+    graph_replays = 0
 
     def __init__(
         self,
@@ -374,6 +385,8 @@ class GraphIndex:
         self._graph: Optional[torch.Tensor] = None
         self._db_t: Optional[torch.Tensor] = None
         self._packed = None  # (packed_vecs, packed_ids, packed_scales, deg_p)
+        self._graphs = {}  # captured searches, LRU: key -> (graph, q, out)
+        self._pool = None  # their memory pool
 
     def _use_packed(self) -> bool:
         """Kernel K's route or the unpacked one. The result rules are the
@@ -441,6 +454,7 @@ class GraphIndex:
 
     def _build_graph(self) -> None:
         self._packed = None  # derived from the graph: rebuilt lazily
+        self._graphs, self._pool = {}, None
         n = self._db.shape[0]
         deg = min(self.degree, n - 1)
         build = self.build
@@ -495,29 +509,17 @@ class GraphIndex:
         k_eff = min(k, self.ntotal)
         use_packed = self._use_packed()
         if use_packed:
-            pv, pi, sc, deg_p = self._packed_state()
+            self._packed_state()
         pivot_rows = self._db if use_packed else self._db_traversal()
         qb = self.query_block(k)
         sims_out, ids_out = [], []
         for start in range(0, q_all.shape[0], qb):
             q = q_all[start : start + qb]
-            if self.n_pivots > 0:
-                entries = _seed_entries(pivot_rows, self._pivot_ids(), q,
-                                        self.n_entry, self.metric)
+            args = (k_eff, beam, iters, use_packed, pivot_rows)
+            if self.device.type == "cuda":
+                s, i = self._replay(q, args)
             else:
-                entries = self._entry_points()
-            if use_packed:
-                s, i = beam_search_packed(
-                    self._db, pv, pi, sc, q, entries, k=k_eff, deg_p=deg_p,
-                    degree=self._graph.shape[1], beam_width=beam,
-                    expand=self.expand, iters=iters,
-                )
-            else:
-                s, i = beam_search(
-                    self._db, self._graph, q, entries, k=k_eff,
-                    beam_width=beam, expand=self.expand, iters=iters,
-                    metric=self.metric, db_traversal=self._db_traversal(),
-                )
+                s, i = self._search_block(q, *args)
             sims_out.append(s)
             ids_out.append(i)
         sims = torch.cat(sims_out)
@@ -528,6 +530,65 @@ class GraphIndex:
             ids = torch.nn.functional.pad(ids, (0, k - k_eff), value=-1)
         return (finalize_scores(sims, self.metric).cpu().numpy(),
                 ids.cpu().numpy())
+
+    def _search_block(self, q, k, beam, iters, use_packed, pivot_rows):
+        """(sims, ids) [Q, k] of one query block: seeding, the beam loop
+        and the exact rescore, with no host sync."""
+        if self.n_pivots > 0:
+            entries = _seed_entries(pivot_rows, self._pivot_ids(), q,
+                                    self.n_entry, self.metric)
+        else:
+            entries = self._entry_points()
+        if use_packed:
+            pv, pi, sc, deg_p = self._packed_state()
+            return beam_search_packed(
+                self._db, pv, pi, sc, q, entries, k=k, deg_p=deg_p,
+                degree=self._graph.shape[1], beam_width=beam,
+                expand=self.expand, iters=iters,
+            )
+        return beam_search(
+            self._db, self._graph, q, entries, k=k, beam_width=beam,
+            expand=self.expand, iters=iters, metric=self.metric,
+            db_traversal=self._db_traversal(),
+        )
+
+    def _replay(self, q, args):
+        """_search_block(q, *args) through the CUDA graph of the block
+        padded to a power of two (rows past q's own are earlier queries,
+        searched and dropped), captured at the first such block after one
+        eager warm-up run on a side stream. The key holds the padded size,
+        the arguments, the tables' addresses and the functions the search
+        calls, so a rebuilt index or a replaced kernel route captures
+        anew."""
+        n = q.shape[0]
+        size = 1 << (n - 1).bit_length()
+        tables = self._packed[0] if args[3] else self._db_traversal()
+        key = (size, *args[:4], self._db.data_ptr(), tables.data_ptr(),
+               slab_cuda.beam_expand, slab_cuda.slab_route)
+        entry = self._graphs.pop(key, None)
+        if entry is None:
+            static = q[torch.arange(size, device=q.device) % n]
+            stream = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                self._search_block(static, *args)
+            stream.wait_stream(side)
+            if len(self._graphs) >= self.MAX_GRAPHS:
+                del self._graphs[next(iter(self._graphs))]
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                out = self._search_block(static, *args)
+            entry = (graph, static, out)
+        self._graphs[key] = entry  # the most recently used last
+        graph, static, out = entry
+        static[:n].copy_(q)
+        graph.replay()
+        GraphIndex.graph_replays += 1
+        return out[0][:n].clone(), out[1][:n].clone()
 
     # --- persistence payload (see search/io.py) ---
     def state(self) -> dict:

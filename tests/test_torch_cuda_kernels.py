@@ -12,10 +12,14 @@ bit for bit, ties included; on Gaussian data ids may only differ by swaps
 of scores within 1e-5.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from knn_for_homology_tpu_torch.models import xlnet
+from knn_for_homology_tpu_torch.models.registry import get_embedder
 from knn_for_homology_tpu_torch.ops import (
     _build,
     align_cuda,
@@ -24,12 +28,16 @@ from knn_for_homology_tpu_torch.ops import (
     flat_cuda,
     ivf_cuda,
     packed_cuda,
+    relattn_cuda,
     slab_cuda,
 )
 from knn_for_homology_tpu_torch.ops import align as align_ops
 from knn_for_homology_tpu_torch.ops.align import encode_sequence
 from knn_for_homology_tpu_torch.ops.ffn import fused_ffn_plain
 from knn_for_homology_tpu_torch.ops.distance import similarity_block
+from knn_for_homology_tpu_torch.ops.relative_attention import (
+    relative_attention_plain,
+)
 from knn_for_homology_tpu_torch.ops.topk import oneshot_topk, plain_topk
 from knn_for_homology_tpu_torch.search import graph as graph_mod
 from knn_for_homology_tpu_torch.search.flat import FlatIndex
@@ -784,6 +792,50 @@ def test_graph_search_on_the_card_equals_plain(cuda, monkeypatch, route):
             assert gi[r, c] in set(wi[r][near]) or near[-1], (r, c)
 
 
+def test_graph_search_replays_captured_blocks(cuda, monkeypatch):
+    # every card block runs as a captured CUDA graph of its size padded to
+    # a power of two: answers those of the plain beam search on the CPU
+    # (scores within 1e-5, ids but near-ties); K counts only its eager
+    # warm-up launches, GraphIndex.graph_replays the replays; one graph a
+    # padded size, k and route, at most MAX_GRAPHS, and searching many
+    # sizes again reserves no more memory
+    db = _graph_rows()
+    index = GraphIndex(degree=42, beam_width=64, packed="always",
+                       device="cuda").add(db)
+    cpu = GraphIndex.from_state(index.state(), device="cpu")
+    for block in (db[:300], db[300:600], db[600:637], db[637:638]):
+        launches, replays = (slab_cuda.beam_expand.launches,
+                             GraphIndex.graph_replays)
+        captured = len(index._graphs)
+        (gv, gi), (wv, wi) = index.search(block, 20), cpu.search(block, 20)
+        assert GraphIndex.graph_replays == replays + 1
+        moved = slab_cuda.beam_expand.launches - launches
+        assert (moved > 0) == (len(index._graphs) > captured)
+        np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-5)
+        assert (gi != wi).mean() <= 0.01
+        for r, c in zip(*np.nonzero(gi != wi)):
+            near = np.abs(wv[r] - wv[r, c]) <= 1e-5
+            assert gi[r, c] in set(wi[r][near]) or near[-1], (r, c)
+    assert len(index._graphs) == 3  # 512, 64, 1
+    sizes = range(1, 301)
+    for n in sizes:
+        index.search(db[:n], 20)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    assert len(index._graphs) == 10  # 1, 2, 4, ..., 512
+    for n in sizes:
+        index.search(db[n:2 * n], 20)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() <= reserved + 2**21
+    for k in range(1, 2 * GraphIndex.MAX_GRAPHS):
+        index.search(db[:8], k)
+    assert len(index._graphs) == GraphIndex.MAX_GRAPHS
+    monkeypatch.setattr(slab_cuda, "slab_route", lambda *shape: "tiles")
+    index.search(db[:8], 20)
+    assert len(index._graphs) == GraphIndex.MAX_GRAPHS
+    assert list(index._graphs)[-1][-1] is slab_cuda.slab_route
+
+
 @pytest.mark.parametrize("route", slab_cuda.ROUTES)
 def test_graph_beam_loop_makes_no_host_sync(cuda, monkeypatch, route):
     # the beam loop, K's route choice and its tile plan stay on the device:
@@ -891,3 +943,93 @@ def test_sw_scores_pairs_through_kernel_c(cuda, convention):
                                         convention=convention, device="cuda")
     assert np.array_equal(scores, want.numpy())
     assert evs.shape == (700,) and np.isfinite(evs).all()
+
+
+def _relattn_inputs(seed, b, h, l, lengths, device, layers=3):
+    """bf16 q, k, v [B, H, L, 64] at unit spread, R as the middle layer's
+    slice of a [2L, layers * H * 64] product (rows layers * H * 64 apart,
+    as the encoder passes it), r_w, r_r and the mask of `lengths`."""
+    rng = np.random.RandomState(seed)
+
+    def bf16(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).to(device=device, dtype=torch.bfloat16)
+
+    q, k, v = (bf16(b, h, l, 64) for _ in range(3))
+    r_all = bf16(2 * l, layers * h * 64)
+    r = r_all[:, h * 64:2 * h * 64].view(2 * l, h, 64)
+    mask = torch.arange(l)[None] < torch.as_tensor(lengths)[:, None]
+    return q, k, v, r, bf16(h, 64, scale=0.5), bf16(h, 64, scale=0.5), \
+        mask.to(device)
+
+
+# the ragged edges of L's 64-key tiles and 128-query blocks, ragged rows
+# (padded keys and query rows), and the published shape
+@pytest.mark.parametrize("b,h,l,lengths", [
+    (1, 2, 1, [1]), (2, 3, 65, [65, 30]), (3, 2, 127, [127, 64, 1]),
+    (2, 2, 129, [100, 129]), (2, 2, 200, [200, 131]),
+    (2, 16, 3098, [3098, 3098]), (3, 16, 2306, [2306, 2100, 1025])])
+def test_kernel_l_matches_plain(cuda, b, h, l, lengths):
+    q, k, v, r, r_w, r_r, mask = _relattn_inputs(31, b, h, l, lengths, cuda)
+    before = relattn_cuda.relative_attention.launches
+    got = relattn_cuda.relative_attention(q, k, v, r, r_w, r_r, mask)
+    torch.cuda.synchronize()
+    assert relattn_cuda.relative_attention.launches == before + 1
+    want = relative_attention_plain(q, k, v, r, r_w, r_r, mask, block=64)
+    assert torch.isfinite(got.float()).all()  # padded rows too
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0**-6 * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("fault", ["no position term", "shifted by one"])
+def test_kernel_l_faults_fail_the_tolerance(cuda, fault):
+    """The comparison above sees the position term: the kernel given R
+    zeroed, or R one row off, is far outside its tolerance."""
+    q, k, v, r, r_w, r_r, mask = _relattn_inputs(32, 2, 16, 700, [700, 500],
+                                                 cuda)
+    want = relative_attention_plain(q, k, v, r, r_w, r_r, mask, block=64)
+    bad = torch.zeros_like(r) if fault == "no position term" else \
+        torch.cat([r[1:], torch.zeros_like(r[:1])])
+    got = relattn_cuda.relative_attention(q, k, v, bad, r_w, r_r, mask)
+    err = float((got.float() - want.float()).abs().max())
+    assert err > 4 * 2.0**-6 * float(want.float().abs().max()), err
+
+
+def test_kernel_l_refuses_what_it_cannot_take(cuda):
+    q, k, v, r, r_w, r_r, mask = _relattn_inputs(33, 1, 2, 64, [64], cuda)
+    with pytest.raises(TypeError):
+        relattn_cuda.relative_attention(q.float(), k.float(), v.float(), r,
+                                        r_w, r_r, mask)
+    with pytest.raises(ValueError):
+        relattn_cuda.relative_attention(q[..., :32].contiguous(),
+                                        k[..., :32].contiguous(),
+                                        v[..., :32].contiguous(),
+                                        r[..., :32], r_w[:, :32],
+                                        r_r[:, :32], mask)
+
+
+def test_xlnet_encode_runs_kernel_l_within_a_gib(cuda):
+    """ProtXLNet at its published widths in bf16, a batch of 2 x 3098
+    tokens: one launch of L a layer, and the encode's peak allocation above
+    the weights under 1 GiB (no [B, H, L, L] or [L, 2L] fp32 tensor)."""
+    config = dataclasses.replace(xlnet.PROTXLNET, dtype=torch.bfloat16)
+    params = xlnet.init_params(config, seed=3, device=cuda)
+    embedder = get_embedder("ProtXLNet UniRef100", config=config,
+                            params=params, device=cuda)
+    del params
+    rng = np.random.RandomState(34)
+    seqs = ["".join(rng.choice(list(AAS[:20]), 3096)) for _ in range(2)]
+    embedder.embed_pooled(seqs[:1])  # the library built, cuBLAS warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = relattn_cuda.relative_attention.launches
+    ids = torch.from_numpy(np.stack([xlnet.tokenize(s) for s in seqs])).to(
+        cuda)
+    mask = torch.ones(ids.shape, dtype=torch.bool, device=cuda)
+    hidden = embedder.encoder(ids, mask)
+    torch.cuda.synchronize()
+    assert hidden.shape == (2, 3098, 1024)
+    assert torch.isfinite(hidden.float()).all()
+    assert relattn_cuda.relative_attention.launches == before + 30
+    assert torch.cuda.max_memory_allocated() - base < 2**30

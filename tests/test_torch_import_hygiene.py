@@ -101,3 +101,28 @@ def test_port_source_has_no_forbidden_construct(pattern):
 @pytest.mark.parametrize("pattern", IMPORTS)
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package(pattern):
     assert not re.search(pattern, SMOKE.read_text(), flags=re.MULTILINE)
+
+
+# the benchmark runs the port on the same machine: its files import neither
+# jax nor the JAX package, and its plain references nothing of the port
+BENCH_FILES = sorted(
+    p.relative_to(ROOT).as_posix()
+    for part in ("drivers", "lib", "metrics", "reference")
+    for p in (ROOT / "portbench" / part).glob("*.py"))
+
+
+@pytest.mark.parametrize("path", BENCH_FILES)
+def test_benchmark_imports_neither_jax_nor_the_jax_package(path):
+    text = (ROOT / path).read_text()
+    for pattern in IMPORTS:
+        assert not re.search(pattern, text, flags=re.MULTILINE), pattern
+    if "/reference/" in path:
+        assert not re.search(r"^\s*(import|from)\s+knn_for_homology_tpu_torch",
+                             text, flags=re.MULTILINE)
+        assert "knn_for_homology_tpu_torch" not in text
+
+
+def test_benchmark_files_listed():
+    assert "portbench/reference/xlnet.py" in BENCH_FILES
+    assert "portbench/drivers/embed_xlnet.py" in BENCH_FILES
+    assert "portbench/drivers/graph_online.py" in BENCH_FILES

@@ -106,7 +106,9 @@ def test_embed_counts_equal_make_batches(embedder):
     batches = make_batches(seqs, 512, 100)
     counts = [s.counts for s in spans if s.name == "embed.batch"]
     assert counts == [{"residues": sum(len(x) for x in b.sequences),
-                       "tokens": len(b.indices) * b.padded_len}
+                       "tokens": len(b.indices) * b.padded_len,
+                       "rows": len(b.indices), "padded_len": b.padded_len,
+                       "residues_sq": sum(len(x) ** 2 for x in b.sequences)}
                       for b in batches]
 
 
