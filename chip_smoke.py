@@ -39,8 +39,8 @@ path; and the MMseqs2 record I/O. Phases:
      weights from a seeded torch.Generator on the card) embeds 1028
      proteins (32 families x 32 of the length mix, plus four long ones
      for the flash route) in 7000-token batches, then l2 and a FlatIndex
-     k = 13 search, launch counts reset just before (G, H, A); an opt-in
-     short-attention run (I); device time by kernel over warm batches;
+     k = 13 search, launch counts reset just before (G, H, I, A); the
+     dense torch attention route against I; device time by kernel over warm batches;
      the kernels' route against the plain versions' on 32 proteins; then
      ProtXLNet-UniRef100 in bf16 (kernel L) embeds the same proteins, L
      launched once a layer a batch, 8 of them held to its fp32 route;
@@ -125,8 +125,9 @@ query repeated on the database as it is and sorted by that query's
 similarity, which splits that proxy's time between products and inserts. A's and B's entries count their launches in every
 phase that runs them (launches_by_phase). Phase 3 also holds the encoder's
 kernels at full width: G at 7000 tokens x
-1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128 and
-27 x 32 x 256 x 128 (H and I fed the [H, 2L-1] offset-bias table), L at
+1024 x 16384, H at 2 x 32 heads x 3200 x 128, I at 13 x 32 x 512 x 128,
+27 x 32 x 256 x 128 and 6 x 32 x 1024 x 128 (H and I fed the [H, 2L-1]
+offset-bias table), L at
 2 x 16 x 3098 x 64 (one row 2002 tokens; R one row off must fail); and the
 IVF path's kernels: J at 1024 queries x 256 cells (32768 rows) x 1024, k =
 1000 (sym and sym2, buffers bit-equal); K at 32 probes x 128 x 1024 and
@@ -843,9 +844,9 @@ def check_encoder_kernels(kernels, seed):
     scale 1 is H's and I's library yardstick (the port never calls it).
     H and I take the [H, 2L-1] offset table; their bounds count its bytes
     and the mask's, and the function's 4·B·H·L²·d_kv operations (I's
-    second sweep recomputes q.k: 1.5x that on the card). I also runs at a
-    second shape, a 7000-token batch at the length mix's median (27 x 256),
-    printed beside its SDPA time."""
+    second sweep recomputes q.k: 1.5x that on the card). I also runs at two
+    more 7000-token batches, at the length mix's median (27 x 256) and at
+    the route's limit (6 x 1024), printed beside their SDPA times."""
     import torch
     import torch.nn.functional as F
 
@@ -949,11 +950,13 @@ def check_encoder_kernels(kernels, seed):
                          flash_cuda.flash_attention_t5, flash_attention_plain,
                          table, dense_from_table(table, l)),
     )
-    # I: the opt-in short route at its limit, 13 rows of 512, and a
-    # 7000-token batch at the length mix's median, 27 rows of 256
+    # I: the encoder's short route, 7000-token batches of 13 rows of 512,
+    # 27 rows of 256 (the length mix's median) and 6 rows of 1024 (the
+    # route's limit, blockwise_above)
     i_cases = {}
     for b, l, lengths in ((13, 512, [512 - 29 * i for i in range(13)]),
-                          (27, 256, [256 - 7 * i for i in range(27)])):
+                          (27, 256, [256 - 7 * i for i in range(27)]),
+                          (6, 1024, [1024 - 37 * i for i in range(6)])):
         table = offset_bias_table(rel, l, cfg.rel_buckets, cfg.rel_max_distance)
         i_cases[(b, l)] = attention_case(
             "I", b, l, lengths, short_cuda.short_attention_t5,
@@ -964,16 +967,20 @@ def check_encoder_kernels(kernels, seed):
         replaces="knn_for_homology_tpu/ops/short_attention.py:37",
         **i_cases[(13, 512)],
     )
-    blocks = {"H": flash_cuda.blocks_per_sm(3200),
-              "I": short_cuda.blocks_per_sm(512)}
-    for key, shape, kv in (
-            ("H", "B=2, H=32, L=3200, dk=128", kernels["H"]),
-            ("I", "B=13, H=32, L=512, dk=128", kernels["I"]),
-            ("I", "B=27, H=32, L=256, dk=128", i_cases[(27, 256)])):
+    kernels["I"]["at_1024"] = i_cases[(6, 1024)]
+    for key, shape, kv, blocks in (
+            ("H", "B=2, H=32, L=3200, dk=128", kernels["H"],
+             flash_cuda.blocks_per_sm(3200)),
+            ("I", "B=13, H=32, L=512, dk=128", kernels["I"],
+             short_cuda.blocks_per_sm(512)),
+            ("I", "B=27, H=32, L=256, dk=128", i_cases[(27, 256)],
+             short_cuda.blocks_per_sm(256)),
+            ("I", "B=6, H=32, L=1024, dk=128", i_cases[(6, 1024)],
+             short_cuda.blocks_per_sm(1024))):
         log(f"phase 3 kernel {key} {kv.get('name', 'short_t5')} [{shape}]:"
             f" max_abs_err {kv['max_abs_err']:.3g}, {kv['ms']:.3f} ms vs plain"
             f" {kv['plain_ms']:.3f} ms, sdpa {kv['library_ms']:.3f} ms, bound"
-            f" {kv['bound_ms']:.3f} ms ({kv['bound_by']}), {blocks[key]}"
+            f" {kv['bound_ms']:.3f} ms ({kv['bound_by']}), {blocks}"
             " block(s) per SM")
 
 
@@ -1977,8 +1984,9 @@ def check_pooled(name, got, want):
 def run_encoder(kernels, seed):
     """Phase 8: sequences → ProtT5-XL (24 layers, bf16, random weights from
     torch.Generator("cuda")) → mean-pool → l2 → FlatIndex k = 13, counts
-    from zero; then the opt-in short route, a profile of one warm batch,
-    and kernels against plain versions on 32 of the proteins."""
+    from zero; then the dense torch route against the path's kernel I, a
+    profile of one warm batch, and kernels against plain versions on 32 of
+    the proteins."""
     import torch
 
     from knn_for_homology_tpu_torch.models import t5
@@ -2033,11 +2041,11 @@ def run_encoder(kernels, seed):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = {key: fn.launches for key, fn in wrappers.items()}
-    for key in ("G", "H", "A"):
+    for key in ("G", "H", "I", "A"):
         assert launches[key] > 0, f"kernel {key} was not launched by phase 8"
-    assert launches["I"] == 0, "the short kernel is opt-in"
     kernels["G"]["launches"], kernels["H"]["launches"] = (
         launches["G"], launches["H"])
+    kernels["I"]["launches"] = launches["I"]
     kernels["A"]["launches_by_phase"]["8"] = launches["A"]
     assert pooled.shape == (len(seqs), config.d_model)
     assert np.isfinite(pooled).all() and np.isfinite(sims).all()
@@ -2052,24 +2060,25 @@ def run_encoder(kernels, seed):
         f" {TOKEN_BUDGET * config.d_ff * 2 / 2**30:.2f} GiB)"
         f" | top-{HITS} same-family share {family_hits:.4f} | launches {launches}")
 
-    # the opt-in short route: kernel I
-    short_seqs = [s for s in train_seqs if len(s) < 512][:64]
-    short_embedder = ProtT5Embedder(
-        config=dataclasses.replace(config, use_short_kernel=True),
+    # the dense torch route (use_short_kernel=False) against the path's
+    # kernel I on 64 proteins shorter than 1024
+    short_seqs = [s for s in train_seqs if len(s) < 1024][:64]
+    dense_embedder = ProtT5Embedder(
+        config=dataclasses.replace(config, use_short_kernel=False),
         params=params, token_budget=TOKEN_BUDGET, device=dev,
     )
     wrappers["I"].launches = 0
-    pooled_short = short_embedder.embed_pooled(short_seqs)
-    kernels["I"]["launches"] = wrappers["I"].launches
-    assert kernels["I"]["launches"] > 0, "kernel I was not launched"
+    pooled_dense = dense_embedder.embed_pooled(short_seqs)
+    assert wrappers["I"].launches == 0, "the dense route launched kernel I"
     rows = [seqs.index(s) for s in short_seqs]
-    cos, rel = check_pooled("short route", pooled_short, pooled[rows])
-    log(f"phase 8 short route: {len(short_seqs)} proteins, kernel I launches"
-        f" {kernels['I']['launches']}, pooled vs the dense route: cosine min"
-        f" {cos:.6f}, relative L2 error max {rel.max():.4g}")
+    cos, rel = check_pooled("dense route", pooled[rows], pooled_dense)
+    log(f"phase 8 dense route: {len(short_seqs)} proteins, pooled vectors of"
+        f" the path (kernel I, {kernels['I']['launches']} launches) vs the"
+        f" dense torch route: cosine min {cos:.6f}, relative L2 error max"
+        f" {rel.max():.4g}")
 
     # warm batches under the profiler, device time by kernel: the median
-    # batch (dense attention) and the longest (flash)
+    # batch (kernel I) and the longest (flash)
     by_len = sorted(batches, key=lambda b: b.padded_len)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -1,5 +1,5 @@
 // T5 attention on Hopper's machinery, shared by kernel H (flash, any L)
-// and kernel I (short, L <= 512): q.k + bias(k_pos - q_pos), the mask, the
+// and kernel I (short, L <= 1024): q.k + bias(k_pos - q_pos), the mask, the
 // softmax and p.v, with q, k, v bf16 [B, H, L, 128], the fp32 [H, 2L-1]
 // offset table of ops/flash_attention.py:offset_bias_table and a bool mask
 // [B, L]. T5 has no 1/sqrt(d_kv) scale.

@@ -28,6 +28,7 @@ import torch
 
 from ..config import DEFAULT_TOKEN_BATCH, MAX_SEQ_LEN
 from ..device import resolve_device
+from ..ops.short_cuda import short_attention_t5
 from ..utils.trace import span
 from . import bert, cpcprot, elmo, plus_rnn, t5, unirep, xlnet
 from .batching import Batch, make_batches, pad_tokens
@@ -126,8 +127,12 @@ class BatchedEmbedder(EmbedderBase):
     def pooled_batch(self, batch: Batch) -> torch.Tensor:
         """[rows, d] fp32 pooled vectors of one batch, on the device."""
         ids, mask, res_mask = self._tokens(batch)
-        with span("embed.encode"):
+        with span("embed.encode") as sp:
+            if sp:
+                short = short_attention_t5.launches
             hidden = self.encoder(ids, mask)
+            if sp:  # kernel I's launches in this encode
+                sp.count(short_launches=short_attention_t5.launches - short)
         with span("embed.pool"):
             return self.pool(hidden, res_mask)
 

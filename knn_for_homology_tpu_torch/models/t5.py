@@ -7,8 +7,8 @@ feed-forward, final norm. Parameters keep the JAX package's tree and its
 reference; `T5Encoder` holds them as an nn.Module whose forward is
 `encode`.
 
-Routes, chosen per encode from the config flags ("auto" resolves as the
-JAX package resolves it on its accelerator):
+Routes, chosen per encode from the config flags and what the encode sees
+(`attention_route`):
   * FFN: `use_fused_ffn` "auto"/True → ops/ffn_cuda.py:fused_ffn_t5
     (kernel G on a CUDA tensor, its plain version on a CPU tensor); False →
     the dense MLP (two matmuls, the [tokens, d_ff] intermediate in memory).
@@ -16,11 +16,14 @@ JAX package resolves it on its accelerator):
     ops/flash_cuda.py:flash_attention_t5 (kernel H or its plain version)
     with one [H, 2L-1] offset-bias table per encode; False →
     `_attention_blockwise`, the JAX package's online-softmax loop.
-  * Attention for L ≤ blockwise_above: dense `_attention` with the
-    [1, H, L, L] position_bias, or with `use_short_kernel=True` and L ≤
-    short_kernel_max ops/short_cuda.py:short_attention_t5 (kernel I or its
-    plain version) with the [H, 2L-1] offset-bias table. "auto" is off, as
-    in the JAX package.
+  * Attention for L ≤ blockwise_above: ops/short_cuda.py:short_attention_t5
+    (kernel I, or its plain version on a CPU tensor) with the [H, 2L-1]
+    offset-bias table while L ≤ short_kernel_max, else dense `_attention`
+    with the [1, H, L, L] position_bias. `use_short_kernel` True takes I
+    on any device; "auto" takes it where kernel I runs (a CUDA tensor, a
+    bf16 config, d_kv 128) and keeps the dense route elsewhere (the CPU,
+    as in the JAX package; fp32 configs; other head widths); False keeps
+    the dense route.
 The q/k/v/o projections are torch.matmul on every route.
 
 Numerics follow the JAX code: rms_norm rounds to the model dtype and then
@@ -62,8 +65,9 @@ class T5Config:
     attention_chunk: int = 512
     blockwise_above: int = 1024
     use_flash_kernel: Any = "auto"  # "auto" (= on) | True | False
-    use_short_kernel: Any = "auto"  # "auto" (= off) | True | False
-    short_kernel_max: int = 512
+    use_short_kernel: Any = "auto"  # "auto" (= on where I runs) | True | False
+    # kernel I's reach (ops/short_cuda.py:MAX_LEN); the JAX package's is 512
+    short_kernel_max: int = 1024
     use_fused_ffn: Any = "auto"  # "auto" (= on) | True | False
 
 
@@ -241,6 +245,20 @@ def _mlp(x, params, config: T5Config, residual=True):
     return x + out if residual else out
 
 
+def attention_route(config: T5Config, length: int, device) -> str:
+    """The attention route of an encode at padded length `length` whose
+    activations are on `device`: "flash" (kernel H) or "blockwise" above
+    blockwise_above; below it "short" (kernel I) or "dense"."""
+    if length > config.blockwise_above:
+        flash = config.use_flash_kernel
+        return "flash" if flash == "auto" or bool(flash) else "blockwise"
+    short = config.use_short_kernel
+    if short == "auto":
+        short = (torch.device(device).type == "cuda"
+                 and config.dtype == torch.bfloat16 and config.d_kv == 128)
+    return "short" if short and length <= config.short_kernel_max else "dense"
+
+
 def encode(
     params: Params,
     token_ids: torch.Tensor,  # [B, L] int
@@ -261,31 +279,17 @@ def encode(
     mask = mask.to(torch.bool)
     length = token_ids.shape[1]
     rel = params["rel_embedding"]
-    blockwise = length > config.blockwise_above
-    use_flash = blockwise and (
-        config.use_flash_kernel == "auto" or bool(config.use_flash_kernel)
-    )
-    use_short = (
-        not blockwise
-        and length <= config.short_kernel_max
-        and config.use_short_kernel != "auto"
-        and bool(config.use_short_kernel)
-    )
-    if blockwise or use_short:
+    route = attention_route(config, length, x.device)
+    if route == "dense":
+        bias = position_bias(rel, length, length, config)
+        attend = functools.partial(_attention, bias=bias, mask=mask)
+    else:
         table = offset_bias_table(
             rel, length, config.rel_buckets, config.rel_max_distance
         )
-    else:
-        bias = position_bias(rel, length, length, config)
-    if use_flash:
-        attend = functools.partial(_attention_flash, mask=mask, table=table)
-    elif blockwise:
-        attend = functools.partial(_attention_blockwise, mask=mask,
-                                   table=table)
-    elif use_short:
-        attend = functools.partial(_attention_short, mask=mask, table=table)
-    else:
-        attend = functools.partial(_attention, bias=bias, mask=mask)
+        fn = {"short": _attention_short, "flash": _attention_flash,
+              "blockwise": _attention_blockwise}[route]
+        attend = functools.partial(fn, mask=mask, table=table)
 
     def block(fn, x, layer):
         if reduce is None:

@@ -7,7 +7,7 @@ to uniform over its L keys), max, exp, sum and divide in fp32, p cast to
 v's dtype, PV summed in fp32 and cast once. The bias comes as the [H, 2L-1]
 fp32 offset table of ops/flash_attention.py:offset_bias_table, expanded
 here to the dense [H, L, L] bias. Kernel I (csrc/short_t5.cu, wrapper
-ops/short_cuda.py) computes the same for L ≤ 512 from the table itself.
+ops/short_cuda.py) computes the same for L ≤ 1024 from the table itself.
 """
 
 import torch

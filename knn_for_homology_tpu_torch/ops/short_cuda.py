@@ -1,4 +1,4 @@
-"""Kernel I: dense T5 attention for L ≤ 512 (csrc/short_t5.cu).
+"""Kernel I: dense T5 attention for L ≤ 1024 (csrc/short_t5.cu).
 
 Port of knn_for_homology_tpu/ops/short_attention.py:_short_kernel (entry
 short_attention_t5). A CUDA tensor goes to the kernel; a CPU tensor to
@@ -13,7 +13,7 @@ from . import _build
 from .attention_checks import check_qkv
 from .short_attention import short_attention_plain
 
-MAX_LEN = 512  # the route's gate (models/t5.py short_kernel_max)
+MAX_LEN = 1024  # the route's gate (models/t5.py short_kernel_max)
 
 
 def short_attention_t5(

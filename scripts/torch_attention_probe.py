@@ -26,10 +26,12 @@ H_SHAPES = [(1, 2, 1), (2, 3, 65), (3, 2, 127), (2, 2, 129), (2, 2, 1025),
             (2, 32, 3200)]
 I_SHAPES = [(1, 2, 1), (2, 3, 63), (2, 2, 64), (3, 2, 65), (2, 2, 127),
             (2, 2, 128), (2, 2, 129), (3, 2, 512), (13, 32, 512),
-            (27, 32, 256)]
+            (27, 32, 256), (3, 2, 1000), (2, 2, 1023), (8, 32, 896),
+            (6, 32, 1024)]
 TIMED = [("H", 2, 3200, [3097, 2601]),
          ("I", 13, 512, [512 - 29 * i for i in range(13)]),
-         ("I", 27, 256, [256 - 7 * i for i in range(27)])]
+         ("I", 27, 256, [256 - 7 * i for i in range(27)]),
+         ("I", 6, 1024, [1024 - 37 * i for i in range(6)])]
 
 
 KERNELS = {"ILi2ELb0": "H", "ILi1ELb1": "I"}  # mangled template arguments
@@ -143,7 +145,8 @@ def main():
         ptxas_report()
     print(f"build {_build.timed_build():.1f} s", flush=True)
     print(f"blocks per SM: H {flash_cuda.blocks_per_sm(3200)} (L = 3200),"
-          f" I {short_cuda.blocks_per_sm(512)} (L = 512)", flush=True)
+          f" I {short_cuda.blocks_per_sm(512)} (L = 512),"
+          f" {short_cuda.blocks_per_sm(1024)} (L = 1024)", flush=True)
 
     ok = True
     for b, h, l in H_SHAPES:

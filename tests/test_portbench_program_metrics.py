@@ -1,8 +1,9 @@
 """The benchmark's readers of the program's spans (portbench/lib/program.py
 and the metrics pad_efficiency.embedder, prep_idle_share.embed,
-dispatch_idle_share.embed, copy_gbps.allvsall): hand-computed values on a
-synthetic trace, the split of an idle gap between spans, the clock check,
-no number from a program without spans, and tiny traced CPU runs."""
+dispatch_idle_share.embed, copy_gbps.allvsall, short_attention_roofline):
+hand-computed values on a synthetic trace, the split of an idle gap
+between spans, the clock check, no number from a program without spans,
+and tiny traced CPU runs."""
 
 import sys
 
@@ -233,3 +234,106 @@ def test_tiny_traced_allvsall_cell(runs):
     # fp32 scores and int32 ids
     assert {s.counts["bytes"] for s in spans if s.name == "flat.d2h"} == {
         rows * k * 8}
+
+
+I_KERNEL = "void knn_attn::attention_t5_kernel<1, true>(CUtensorMap, int, int)"
+H_KERNEL = "void knn_attn::attention_t5_kernel<2, false>(CUtensorMap, int, int)"
+
+
+def with_short_launches(launches, padded=True):
+    """SPANS with kernel I's launch counts on the encodes of the two batches
+    (the second batch's encode added inside it), rows and padded lengths on
+    the batches (left out with `padded` False: a program that counts no
+    shapes)."""
+    extra = ({"rows": 2, "padded_len": 128}, {"rows": 1, "padded_len": 256})
+    out, batch = [], 0
+    for sp in SPANS:
+        if sp.name == "embed.batch":
+            counts = dict(sp.counts, **(extra[batch] if padded else {}))
+            out.append(sp._replace(counts=counts))
+            if batch == 1:
+                out.append(Span("embed.encode", 8, 0, 4.1, 4.7,
+                                {"short_launches": launches[1]}))
+            batch += 1
+        elif sp.name == "embed.encode":
+            out.append(sp._replace(counts={"short_launches": launches[0]}))
+        else:
+            out.append(sp)
+    return out
+
+
+def test_short_attention_roofline_hand_computed(recorded):
+    """The bound of each batch whose encode launched I, once a launch, over
+    the device time of I's kernels alone (H's left out)."""
+    from portbench.lib.work import attention_bound_s
+
+    kernels = KERNELS + [(I_KERNEL, 1.4, 1.45), (I_KERNEL, 4.2, 4.23),
+                         (H_KERNEL, 4.3, 4.4)]
+    run = synthetic_run(kernels=kernels)
+    run.config = {"num_heads": 32, "d_kv": 128}
+    recorded(with_short_launches((24, 24)))
+    want = 24 * (attention_bound_s(2, 32, 128, 128)
+                 + attention_bound_s(1, 32, 256, 128))
+    got = reader("short_attention_roofline").read(run)
+    assert got == pytest.approx(100.0 * want / 0.08)
+    # a batch whose encode took another route adds nothing to the bound
+    recorded(with_short_launches((24, 0)))
+    run = synthetic_run(kernels=kernels)
+    run.config = {"num_heads": 32, "d_kv": 128}
+    assert reader("short_attention_roofline").read(run) == pytest.approx(
+        100.0 * 24 * attention_bound_s(2, 32, 128, 128) / 0.08)
+
+
+@pytest.mark.parametrize("case", ["parent", "no_launch", "no_kernel",
+                                  "no_padded_len"])
+def test_short_attention_roofline_reads_nothing(recorded, case):
+    """No number from a program that does not count I's launches (the
+    parent), from encodes that launched none, from a trace without I's
+    kernels, or from batches without their shapes."""
+    kernels = KERNELS + [(I_KERNEL, 1.4, 1.45)]
+    spans = {"parent": SPANS, "no_launch": with_short_launches((0, 0)),
+             "no_kernel": with_short_launches((24, 24)),
+             "no_padded_len": with_short_launches((24, 24), padded=False)}
+    recorded(spans[case])
+    run = synthetic_run(kernels=KERNELS if case == "no_kernel" else kernels)
+    run.config = {"num_heads": 32, "d_kv": 128}
+    assert reader("short_attention_roofline").read(run) is None
+
+
+def test_encode_span_counts_kernel_i_launches(monkeypatch):
+    """Each "embed.encode" span counts the launches of kernel I's wrapper
+    in its encode: one a layer where the route takes I (on the CPU only
+    with use_short_kernel=True; the wrapper's plain version is counted
+    here as the card would count its kernel), none on the dense route."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from knn_for_homology_tpu_torch.models import t5
+    from knn_for_homology_tpu_torch.models.registry import ProtT5Embedder
+    from knn_for_homology_tpu_torch.ops import short_cuda
+    from knn_for_homology_tpu_torch.utils import trace
+
+    real = short_cuda.short_attention_t5
+
+    def counted(*args):
+        real.launches += 1
+        return real(*args)
+
+    monkeypatch.setattr(short_cuda, "short_attention_t5", counted)
+    params = t5.init_params(t5.TINY, seed=0, device="cpu")
+    seqs = ["MKTAYIAKQR" * 3, "ACDEFGHIK", "W" * 40]
+    counts = {}
+    for flag in (True, "auto", False):
+        config = dataclasses.replace(t5.TINY, use_short_kernel=flag,
+                                     dtype=torch.float32)
+        embedder = ProtT5Embedder(config=config, params=params,
+                                  token_budget=64, device="cpu")
+        trace.spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            embedder.embed_pooled(seqs)
+        encodes = [sp for sp in trace.spans() if sp.name == "embed.encode"]
+        assert len(encodes) == len(embedder.batches(seqs)) > 1
+        counts[flag] = {sp.counts["short_launches"] for sp in encodes}
+    assert counts == {True: {t5.TINY.num_layers}, "auto": {0}, False: {0}}

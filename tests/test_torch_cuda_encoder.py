@@ -122,11 +122,14 @@ def test_kernel_h_matches_plain(cuda, b, h, l):
 
 
 # the ragged edges of I's 64-key tiles and 64-query blocks, the route's
-# limit, and the phase-3 batches (13 x 512, 27 x 256)
+# limit (1024, and just under it), and the phase-3 batches (13 x 512,
+# 27 x 256, 6 x 1024; 8 x 896, a 7000-token batch past 512)
 @pytest.mark.parametrize("b,h,l", [(1, 2, 1), (2, 3, 63), (2, 2, 64),
                                    (3, 2, 65), (2, 3, 100), (2, 2, 127),
                                    (2, 2, 128), (2, 2, 129), (3, 2, 512),
-                                   (13, 32, 512), (27, 32, 256)])
+                                   (13, 32, 512), (27, 32, 256),
+                                   (6, 32, 1024), (3, 2, 1000), (2, 2, 1023),
+                                   (8, 32, 896)])
 def test_kernel_i_matches_plain(cuda, b, h, l):
     q, k, v, mask, rel = _attention_inputs(2, b, h, l, cuda)
     table = offset_bias_table(rel, l, 32, 128)
@@ -140,10 +143,20 @@ def test_kernel_i_matches_plain(cuda, b, h, l):
 
 
 def test_attention_blocks_per_sm(cuda):
-    """I fits two blocks per SM at its limit; H one of two warpgroups and a
-    producer warp (the CUDA occupancy query)."""
+    """I fits two blocks per SM up to its limit; H one of two warpgroups and
+    a producer warp (the CUDA occupancy query)."""
     assert short_cuda.blocks_per_sm(512) >= 2
+    assert short_cuda.blocks_per_sm(1024) >= 2
     assert flash_cuda.blocks_per_sm(3200) >= 1
+
+
+def test_kernel_i_refuses_past_its_limit(cuda):
+    q, k, v, mask, rel = _attention_inputs(3, 1, 2, 1025, cuda)
+    table = offset_bias_table(rel, 1025, 32, 128)
+    before = short_cuda.short_attention_t5.launches
+    with pytest.raises(ValueError):
+        short_cuda.short_attention_t5(q, k, v, mask, table)
+    assert short_cuda.short_attention_t5.launches == before
 
 
 def test_attention_kernels_refuse_other_widths(cuda):
@@ -164,7 +177,7 @@ CARD_CONFIG = t5.T5Config(vocab_size=32, d_model=256, d_kv=128, d_ff=512,
 
 
 @pytest.mark.parametrize("length,flags", [
-    (96, {}),  # dense attention + kernel G
+    (96, {"use_short_kernel": False}),  # dense attention + kernel G
     (96, {"use_short_kernel": True}),  # + kernel I
     (200, {"blockwise_above": 128}),  # kernel H + kernel G
 ])
@@ -180,3 +193,27 @@ def test_encode_on_card_matches_cpu(cuda, length, flags):
     got = card(ids.to(cuda), mask.to(cuda)).cpu()
     # two layers of bf16 roundings taken in different places
     assert_bf16_close(got, want, tol=2.0**-5)
+
+
+@pytest.mark.parametrize("length", [640, 1024])
+def test_encode_auto_takes_kernel_i(cuda, length):
+    """"auto" on the card at a padded length in (512, blockwise_above]: one
+    launch of kernel I a layer, held to the dense torch route
+    (use_short_kernel=False) on the same card, ragged rows and a row with
+    no real token."""
+    params = t5.init_params(CARD_CONFIG, seed=1, device=cuda)
+    rng = np.random.RandomState(5)
+    ids = torch.from_numpy(rng.randint(3, 24, size=(4, length))).to(cuda)
+    mask = torch.ones((4, length), dtype=torch.bool, device=cuda)
+    mask[1, length - 77:] = False
+    mask[2, 300:] = False
+    mask[3] = False
+    before = short_cuda.short_attention_t5.launches
+    got = t5.T5Encoder(CARD_CONFIG, params)(ids, mask)
+    assert (short_cuda.short_attention_t5.launches - before
+            == CARD_CONFIG.num_layers)
+    dense = dataclasses.replace(CARD_CONFIG, use_short_kernel=False)
+    before = short_cuda.short_attention_t5.launches
+    want = t5.T5Encoder(dense, params)(ids, mask)
+    assert short_cuda.short_attention_t5.launches == before
+    assert_bf16_close(got, want)

@@ -98,9 +98,16 @@ def test_tokenize_equal():
 
 
 def test_configs_match():
+    """The configs equal the JAX package's but for the dtype and
+    short_kernel_max: the port's is kernel I's reach on the card
+    (ops/short_cuda.py:MAX_LEN), the JAX package's its TPU kernel's."""
+    from knn_for_homology_tpu_torch.ops import short_cuda
+
     for name in ("PROTT5_XL", "TINY"):
         j, t = dataclasses.asdict(getattr(jt5, name)), dataclasses.asdict(getattr(tt5, name))
         j.pop("dtype"), t.pop("dtype")
+        assert j.pop("short_kernel_max") == 512
+        assert t.pop("short_kernel_max") == short_cuda.MAX_LEN == 1024
         assert j == t
     assert tt5.PROTT5_XL.dtype == torch.bfloat16
 
@@ -160,7 +167,8 @@ def test_short_route_matches_dense_route_and_jax(dtype, monkeypatch):
 
 def test_auto_flags_resolve_to_the_accelerator_routes(monkeypatch):
     """"auto" takes the fused FFN and, above blockwise_above, the flash
-    route; the short kernel stays off."""
+    route; on the CPU it never calls kernel I's wrapper (the dense route,
+    as in the JAX package: see test_attention_route_rule)."""
     from knn_for_homology_tpu_torch.ops import ffn_cuda, flash_cuda, short_cuda
 
     calls = []
@@ -183,6 +191,44 @@ def test_auto_flags_resolve_to_the_accelerator_routes(monkeypatch):
     assert calls.count("fused_ffn_t5") == 2 * layers
     assert calls.count("flash_attention_t5") == layers
     assert "short_attention_t5" not in calls
+
+
+XL = tt5.PROTT5_XL
+
+
+@pytest.mark.parametrize("config,length,device,route", [
+    (XL, 128, "cuda", "short"),
+    (XL, 512, "cuda", "short"),
+    (XL, 1024, "cuda:0", "short"),
+    (XL, 1152, "cuda", "flash"),
+    (dataclasses.replace(XL, use_flash_kernel=False), 1152, "cuda",
+     "blockwise"),
+    (XL, 512, "cpu", "dense"),
+    (XL, 1024, "meta", "dense"),
+    (dataclasses.replace(XL, dtype=torch.float32), 512, "cuda",
+     "dense"),
+    (dataclasses.replace(XL, dtype=torch.float16), 512, "cuda",
+     "dense"),
+    (dataclasses.replace(XL, d_kv=64), 512, "cuda", "dense"),
+    (tt5.TINY, 48, "cuda", "dense"),
+    (dataclasses.replace(XL, use_short_kernel=False), 512, "cuda",
+     "dense"),
+    (dataclasses.replace(XL, use_short_kernel=True), 512, "cpu",
+     "short"),
+    (dataclasses.replace(XL, use_short_kernel=True, blockwise_above=2048),
+     1152, "cuda", "dense"),
+    (dataclasses.replace(XL, blockwise_above=2048), 1100, "cuda",
+     "dense"),
+], ids=["cuda-128", "cuda-512", "cuda-1024", "cuda-1152-flash",
+        "cuda-1152-blockwise", "cpu", "meta", "fp32", "fp16", "dkv64", "tiny",
+        "short-off", "short-on-cpu", "short-on-past-max",
+        "auto-past-max"])
+def test_attention_route_rule(config, length, device, route):
+    """"auto" takes kernel I where it runs (a CUDA device, bf16, d_kv 128,
+    padded L ≤ blockwise_above and ≤ short_kernel_max), H above
+    blockwise_above, and the dense route anywhere else; True and False keep
+    their meaning."""
+    assert tt5.attention_route(config, length, torch.device(device)) == route
 
 
 def test_init_params_scales_and_generator():
