@@ -851,11 +851,11 @@ def check_encoder_kernels(kernels, seed):
     import torch.nn.functional as F
 
     from knn_for_homology_tpu_torch.models import t5
+    from knn_for_homology_tpu_torch.models.t5 import offset_bias_table
     from knn_for_homology_tpu_torch.ops import ffn_cuda, flash_cuda, short_cuda
     from knn_for_homology_tpu_torch.ops.ffn import fused_ffn_plain
     from knn_for_homology_tpu_torch.ops.flash_attention import (
         flash_attention_plain,
-        offset_bias_table,
     )
     from knn_for_homology_tpu_torch.ops.short_attention import (
         short_attention_plain,
@@ -1904,10 +1904,10 @@ def run_paper_pipelines(ds, train, test, kernels, seed):
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """The encoder's kernel wrappers swapped for their plain versions, so
-    that the same path runs on the card through them (models/t5.py looks
-    the wrappers up at each call)."""
+def plain_kernels(keys="GHI"):
+    """The wrappers of the encoder's kernels named in `keys` swapped for
+    their plain versions, so that the same path runs on the card through
+    them (models/t5.py looks the wrappers up at each call)."""
     from knn_for_homology_tpu_torch.ops import ffn_cuda, flash_cuda, short_cuda
     from knn_for_homology_tpu_torch.ops.ffn import fused_ffn_plain
     from knn_for_homology_tpu_torch.ops.flash_attention import (
@@ -1917,9 +1917,11 @@ def plain_kernels():
         short_attention_plain,
     )
 
-    swaps = [(ffn_cuda, "fused_ffn_t5", fused_ffn_plain),
-             (flash_cuda, "flash_attention_t5", flash_attention_plain),
-             (short_cuda, "short_attention_t5", short_attention_plain)]
+    swaps = [(mod, name, plain) for key, mod, name, plain in (
+        ("G", ffn_cuda, "fused_ffn_t5", fused_ffn_plain),
+        ("H", flash_cuda, "flash_attention_t5", flash_attention_plain),
+        ("I", short_cuda, "short_attention_t5", short_attention_plain))
+        if key in keys]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     try:
         for mod, name, plain in swaps:
@@ -1984,9 +1986,9 @@ def check_pooled(name, got, want):
 def run_encoder(kernels, seed):
     """Phase 8: sequences → ProtT5-XL (24 layers, bf16, random weights from
     torch.Generator("cuda")) → mean-pool → l2 → FlatIndex k = 13, counts
-    from zero; then the dense torch route against the path's kernel I, a
-    profile of one warm batch, and kernels against plain versions on 32 of
-    the proteins."""
+    from zero; then kernel I's plain version on the card against the path's
+    kernel I, a profile of one warm batch, and kernels against plain
+    versions on 32 of the proteins."""
     import torch
 
     from knn_for_homology_tpu_torch.models import t5
@@ -2041,8 +2043,15 @@ def run_encoder(kernels, seed):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = {key: fn.launches for key, fn in wrappers.items()}
-    for key in ("G", "H", "I", "A"):
-        assert launches[key] > 0, f"kernel {key} was not launched by phase 8"
+    # every FFN on G; attention on I for batches padded to ≤ blockwise_above,
+    # on H above
+    dense = sum(b.padded_len <= config.blockwise_above for b in batches)
+    want = {"G": len(batches), "H": len(batches) - dense, "I": dense}
+    for key, n in want.items():
+        assert launches[key] == config.num_layers * n, (
+            f"kernel {key}: {launches[key]} launches, want"
+            f" {config.num_layers} x {n} of {len(batches)} batches")
+    assert launches["A"] > 0, "kernel A was not launched by phase 8"
     kernels["G"]["launches"], kernels["H"]["launches"] = (
         launches["G"], launches["H"])
     kernels["I"]["launches"] = launches["I"]
@@ -2060,22 +2069,19 @@ def run_encoder(kernels, seed):
         f" {TOKEN_BUDGET * config.d_ff * 2 / 2**30:.2f} GiB)"
         f" | top-{HITS} same-family share {family_hits:.4f} | launches {launches}")
 
-    # the dense torch route (use_short_kernel=False) against the path's
-    # kernel I on 64 proteins shorter than 1024
+    # kernel I's plain version on the card (swapped in for I's wrapper)
+    # against the path's kernel I on 64 proteins shorter than 1024
     short_seqs = [s for s in train_seqs if len(s) < 1024][:64]
-    dense_embedder = ProtT5Embedder(
-        config=dataclasses.replace(config, use_short_kernel=False),
-        params=params, token_budget=TOKEN_BUDGET, device=dev,
-    )
     wrappers["I"].launches = 0
-    pooled_dense = dense_embedder.embed_pooled(short_seqs)
-    assert wrappers["I"].launches == 0, "the dense route launched kernel I"
+    with plain_kernels("I"):
+        pooled_plain = embedder.embed_pooled(short_seqs)
+    assert wrappers["I"].launches == 0, "I's plain version launched kernel I"
     rows = [seqs.index(s) for s in short_seqs]
-    cos, rel = check_pooled("dense route", pooled[rows], pooled_dense)
-    log(f"phase 8 dense route: {len(short_seqs)} proteins, pooled vectors of"
-        f" the path (kernel I, {kernels['I']['launches']} launches) vs the"
-        f" dense torch route: cosine min {cos:.6f}, relative L2 error max"
-        f" {rel.max():.4g}")
+    cos, rel = check_pooled("I's plain version", pooled[rows], pooled_plain)
+    log(f"phase 8 I's plain version: {len(short_seqs)} proteins, pooled"
+        f" vectors of the path (kernel I, {kernels['I']['launches']}"
+        f" launches) vs I's plain version on the card: cosine min {cos:.6f},"
+        f" relative L2 error max {rel.max():.4g}")
 
     # warm batches under the profiler, device time by kernel: the median
     # batch (kernel I) and the longest (flash)

@@ -1,7 +1,7 @@
 // T5 attention on Hopper's machinery, shared by kernel H (flash, any L)
 // and kernel I (short, L <= 1024): q.k + bias(k_pos - q_pos), the mask, the
 // softmax and p.v, with q, k, v bf16 [B, H, L, 128], the fp32 [H, 2L-1]
-// offset table of ops/flash_attention.py:offset_bias_table and a bool mask
+// offset table of models/t5.py:offset_bias_table and a bool mask
 // [B, L]. T5 has no 1/sqrt(d_kv) scale.
 //
 // Block layout. A block takes BQ = 64 * NWG queries of one (batch row,
@@ -35,12 +35,13 @@
 //     running max starts at -1e9; masked keys get the -1e9 fill AND p = 0
 //     (a row with no real key ends at 0); l sums the fp32 p; p is cast to
 //     bf16 unnormalised; out = bf16(acc / max(l, 1e-30)).
-//   * I (SHORT true), models/t5.py:_attention's numerics: sweep 1 over the
-//     keys keeps the row max and sum online (from -inf; the first rescale's
-//     exp(-inf - m) is 0, and a max of -inf is guarded); sweep 2 recomputes
-//     S and forms p = exp(s - m) / l in fp32 before the bf16 cast. Masked
-//     keys get the -1e9 fill with p NOT zeroed (an all-masked row averages
-//     over its L keys); keys past L score -inf.
+//   * I (SHORT true), ops/short_attention.py:short_attention_plain's
+//     numerics: sweep 1 over the keys keeps the row max and sum online
+//     (from -inf; the first rescale's exp(-inf - m) is 0, and a max of
+//     -inf is guarded); sweep 2 recomputes S and forms p = exp(s - m) / l
+//     in fp32 before the bf16 cast. Masked keys get the -1e9 fill with p
+//     NOT zeroed (an all-masked row averages over its L keys); keys past L
+//     score -inf.
 
 #pragma once
 

@@ -1,13 +1,13 @@
 // Kernel I: dense T5 attention for short sequences (L <= 1024).
 //
 // Replaces knn_for_homology_tpu/ops/short_attention.py:_short_kernel (entry
-// short_attention_t5), with models/t5.py:_attention's numerics: exact fp32
-// scores q.k plus the bias, the -1e9 fill for masked keys (p is NOT zeroed,
-// so a row with every key masked softmaxes to uniform over its L keys),
-// max, exp, sum and normalise in fp32, p cast to bf16, PV summed in fp32
-// and cast once. The bias comes as the [H, 2L-1] fp32 offset table of
-// ops/flash_attention.py:offset_bias_table (the bias depends only on
-// k_pos - q_pos), not as the dense [H, L, L] tensor. The encoder takes it
+// short_attention_t5), with ops/short_attention.py:short_attention_plain's
+// numerics: exact fp32 scores q.k plus the bias, the -1e9 fill for masked
+// keys (p is NOT zeroed, so a row with every key masked softmaxes to
+// uniform over its L keys), max, exp, sum and normalise in fp32, p cast to
+// bf16, PV summed in fp32 and cast once. The bias comes as the [H, 2L-1]
+// fp32 offset table of models/t5.py:offset_bias_table (the bias depends
+// only on k_pos - q_pos), not as the dense [H, L, L] tensor. The encoder takes it
 // for every batch padded to at most blockwise_above (1024) tokens on the
 // card (models/t5.py:attention_route).
 //

@@ -96,8 +96,10 @@ def _dryrun_rank(n_devices: int, device: str) -> dict:
     model_par = 2 if n_devices % 2 == 0 else 1
     mesh = make_mesh(n_devices, axis_names=(DATA_AXIS, MODEL_AXIS),
                      shape=(n_devices // model_par, model_par))
+    # d_kv 128: on the card kernels I and G take the encoder whole and
+    # split over two model ranks
     config = t5.T5Config(
-        vocab_size=32, d_model=128, d_kv=32, d_ff=256, num_layers=2,
+        vocab_size=32, d_model=128, d_kv=128, d_ff=256, num_layers=2,
         num_heads=4,
         dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32,
     )

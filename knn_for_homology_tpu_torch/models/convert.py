@@ -225,11 +225,21 @@ def convert_t5_from_hf(
     return config, params
 
 
+# route fields of a T5 config that the JAX package keeps and the port
+# does not (the port's kernels decide their own reach): a checkpoint's meta
+# may carry them, and they are dropped on reading
+T5_ROUTE_FIELDS = frozenset(
+    {"use_flash_kernel", "use_short_kernel", "short_kernel_max",
+     "use_fused_ffn"})
+
+
 def load_t5_checkpoint(
     path: Path, device="cuda"
 ) -> Tuple[T5Config, Params, Optional[Dict[str, int]]]:
     """Load a converted .npz, or convert an HF directory in place →
-    (config, params on `device` in bf16, vocab).
+    (config, params on `device` in bf16, vocab). The meta's config may
+    carry T5_ROUTE_FIELDS, which are dropped; any other field T5Config
+    lacks raises.
 
     `vocab` is the residue → token-id table stored in the checkpoint's meta
     (key "vocab") when the source tokenizer's ordering differs from the
@@ -240,7 +250,9 @@ def load_t5_checkpoint(
         config, tree = convert_t5_from_hf(path)
         return config, params_to_torch(tree, device, config.dtype), None
     tree, meta = load_params(path)
-    config = T5Config(**{**meta.get("config", {}), "dtype": torch.bfloat16})
+    cfg = {k: v for k, v in meta.get("config", {}).items()
+           if k not in T5_ROUTE_FIELDS}
+    config = T5Config(**{**cfg, "dtype": torch.bfloat16})
     return config, params_to_torch(tree, device, config.dtype), _meta_vocab(meta)
 
 

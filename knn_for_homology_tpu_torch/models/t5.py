@@ -7,30 +7,28 @@ feed-forward, final norm. Parameters keep the JAX package's tree and its
 reference; `T5Encoder` holds them as an nn.Module whose forward is
 `encode`.
 
-Routes, chosen per encode from the config flags and what the encode sees
-(`attention_route`):
-  * FFN: `use_fused_ffn` "auto"/True → ops/ffn_cuda.py:fused_ffn_t5
-    (kernel G on a CUDA tensor, its plain version on a CPU tensor); False →
-    the dense MLP (two matmuls, the [tokens, d_ff] intermediate in memory).
-  * Attention for L > blockwise_above: `use_flash_kernel` "auto"/True →
-    ops/flash_cuda.py:flash_attention_t5 (kernel H or its plain version)
-    with one [H, 2L-1] offset-bias table per encode; False →
-    `_attention_blockwise`, the JAX package's online-softmax loop.
-  * Attention for L ≤ blockwise_above: ops/short_cuda.py:short_attention_t5
-    (kernel I, or its plain version on a CPU tensor) with the [H, 2L-1]
-    offset-bias table while L ≤ short_kernel_max, else dense `_attention`
-    with the [1, H, L, L] position_bias. `use_short_kernel` True takes I
-    on any device; "auto" takes it where kernel I runs (a CUDA tensor, a
-    bf16 config, d_kv 128) and keeps the dense route elsewhere (the CPU,
-    as in the JAX package; fp32 configs; other head widths); False keeps
-    the dense route.
-The q/k/v/o projections are torch.matmul on every route.
+Attention has two formulations, chosen once per encode from its padded
+length L alone (`attention_route`); both take the bias as one [H, 2L-1]
+fp32 offset table per encode (`offset_bias_table`), shared by all layers:
+  * L ≤ blockwise_above: dense attention, kernel I's wrapper
+    (ops/short_cuda.py:short_attention_t5);
+  * L > blockwise_above: flash attention, kernel H's wrapper
+    (ops/flash_cuda.py:flash_attention_t5), whose plain version steps
+    attention_chunk keys at a time.
+The FFN is kernel G's wrapper (ops/ffn_cuda.py:fused_ffn_t5). Each wrapper
+sends a CPU tensor to its plain version and a CUDA tensor to its kernel,
+and raises, naming the kernel's limit, for a call the kernel cannot take
+(a dtype other than bf16, other widths, L past its MAX_LEN): the encoder
+never swaps a kernel for plain PyTorch on the card by itself. The wrappers
+are looked up in their modules at each encode, so a caller that wants the
+plain versions on the card swaps them (chip_smoke.py's plain_kernels
+does). The q/k/v/o projections are torch.matmul.
 
 Numerics follow the JAX code: rms_norm rounds to the model dtype and then
 multiplies by the scale in that dtype; products that the JAX code asks in
 fp32 (`preferred_element_type=jnp.float32`) are fp32 matmuls of the upcast
 operands cast once; the mask fill is -1e9, so a row with every key masked
-softmaxes to uniform (dense routes) or to zero (flash routes), never NaN.
+softmaxes to uniform (dense attention) or to zero (flash), never NaN.
 """
 
 import functools
@@ -43,9 +41,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops import ffn_cuda, flash_cuda, short_cuda
 
 Params = Dict[str, Any]
-NEG = -1e9
 
 
 @dataclass(frozen=True)
@@ -60,15 +58,10 @@ class T5Config:
     rel_max_distance: int = 128
     layer_norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
-    # key/query block of the blockwise (flash False) route and of the flash
-    # route's plain version; the flash route takes over above blockwise_above
+    # key step of the flash attention's plain version, which takes over
+    # from dense attention above blockwise_above
     attention_chunk: int = 512
     blockwise_above: int = 1024
-    use_flash_kernel: Any = "auto"  # "auto" (= on) | True | False
-    use_short_kernel: Any = "auto"  # "auto" (= on where I runs) | True | False
-    # kernel I's reach (ops/short_cuda.py:MAX_LEN); the JAX package's is 512
-    short_kernel_max: int = 1024
-    use_fused_ffn: Any = "auto"  # "auto" (= on) | True | False
 
 
 # ProtT5-XL (t5-3b encoder): 24 layers, d_model 1024, 32 heads x 128, d_ff 16384
@@ -110,28 +103,20 @@ def relative_position_bucket(
     return ret + torch.where(is_small, n, val_if_large)
 
 
-def offset_buckets(
-    q_len: int, k_len: int, num_buckets: int, max_distance: int
+def offset_bias_table(
+    rel_embedding: torch.Tensor,  # [buckets, H]
+    length: int,
+    num_buckets: int,
+    max_distance: int,
 ) -> torch.Tensor:
-    """Buckets of every offset k - q in [-(q_len-1), k_len-1] (int64, CPU):
-    computed on the CPU whatever the device, so the card's buckets are the
-    CPU's bit for bit."""
-    offsets = torch.arange(-(q_len - 1), k_len, dtype=torch.int32)
-    return relative_position_bucket(offsets, num_buckets, max_distance).long()
-
-
-def position_bias(
-    rel_embedding: torch.Tensor, q_len: int, k_len: int, config: T5Config
-) -> torch.Tensor:
-    """[1, heads, q_len, k_len] fp32 additive attention bias."""
-    buckets = offset_buckets(
-        q_len, k_len, config.rel_buckets, config.rel_max_distance
-    ).to(rel_embedding.device)
-    table = rel_embedding[buckets].float()  # [q_len + k_len - 1, heads]
-    ctx = torch.arange(q_len, device=rel_embedding.device)[:, None]
-    mem = torch.arange(k_len, device=rel_embedding.device)[None, :]
-    bias = table[mem - ctx + q_len - 1]  # [q, k, heads]
-    return bias.permute(2, 0, 1)[None].contiguous()
+    """[H, 2·length − 1] fp32: table[h, d + length − 1] = the bias of
+    offset d = k_pos − q_pos for head h, on rel_embedding's device. The
+    buckets are computed on the CPU whatever the device, so the card's are
+    the CPU's bit for bit."""
+    offsets = torch.arange(-(length - 1), length, dtype=torch.int32)
+    buckets = relative_position_bucket(offsets, num_buckets, max_distance)
+    buckets = buckets.long().to(rel_embedding.device)
+    return rel_embedding[buckets].float().t().contiguous()
 
 
 def _projections(x, params, config: T5Config):
@@ -146,117 +131,34 @@ def _projections(x, params, config: T5Config):
     ]
 
 
-def _output(x, ctx, params, residual=True):
-    """x + ctx @ o for ctx [B, H, L, dk], cast to x's dtype first; without
-    `residual` ctx @ o alone (a tensor-parallel rank's partial sum)."""
+def _attention(x, params, mask, table, context, config: T5Config,
+               residual=True):
+    """Self-attention block (pre-norm): the q/k/v projections here,
+    `context(q, k, v, mask, table)` → [B, H, L, dk], then x + ctx @ o, the
+    context cast to x's dtype first; without `residual` ctx @ o alone (a
+    tensor-parallel rank's partial sum)."""
     b, l = x.shape[:2]
-    ctx = ctx.transpose(1, 2).reshape(b, l, -1).to(x.dtype)
-    out = torch.matmul(ctx, params["o"])
+    q, k, v = _projections(x, params, config)
+    ctx = context(q, k, v, mask, table)
+    out = torch.matmul(ctx.transpose(1, 2).reshape(b, l, -1).to(x.dtype),
+                       params["o"])
     return x + out if residual else out
-
-
-def _attention(x, params, bias, mask, config: T5Config, residual=True):
-    """Dense self-attention block (pre-norm). x [B, L, d]; bias [1, H, L, L]
-    fp32; fp32 scores, softmax, probabilities in the model dtype, fp32 PV
-    accumulation cast once."""
-    q, k, v = _projections(x, params, config)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))  # T5: no scale
-    scores = scores + bias
-    scores = torch.where(mask[:, None, None, :], scores, NEG)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.matmul(probs.float(), v.float()).to(x.dtype)
-    return _output(x, ctx, params, residual)
-
-
-def _attention_short(x, params, mask, table, config: T5Config,
-                     residual=True):
-    """Dense attention through kernel I (ops/short_cuda.py): projections
-    here, scores + bias + softmax + PV fused. `table` [H, 2L-1] fp32 comes
-    from ops/flash_attention.offset_bias_table, once per encode."""
-    from ..ops.short_cuda import short_attention_t5
-
-    q, k, v = _projections(x, params, config)
-    ctx = short_attention_t5(q, k, v, mask, table)
-    return _output(x, ctx, params, residual)
-
-
-def _attention_flash(x, params, mask, table, config: T5Config,
-                     residual=True):
-    """Blockwise attention through kernel H (ops/flash_cuda.py): qkv
-    projections here, the online softmax and the offset bias in the kernel.
-    `table` [H, 2L-1] fp32 comes from ops/flash_attention.offset_bias_table,
-    once per encode."""
-    from ..ops.flash_cuda import flash_attention_t5
-
-    q, k, v = _projections(x, params, config)
-    ctx = flash_attention_t5(q, k, v, mask, table, block=config.attention_chunk)
-    return _output(x, ctx, params, residual)
-
-
-def _attention_blockwise(x, params, mask, table, config: T5Config,
-                         residual=True):
-    """The JAX package's XLA formulation of blockwise attention in plain
-    torch: query chunks loop over key/value chunks carrying the online
-    softmax state (running max from -inf, normaliser, fp32 accumulator);
-    masked keys get the -1e9 fill and p multiplied by 0; p stays fp32 in
-    the PV product. `table` [H, 2L-1] fp32 is the offset bias."""
-    b, l, _ = x.shape
-    h, dk = config.num_heads, config.d_kv
-    chunk = min(config.attention_chunk, l)
-    q, k, v = _projections(x, params, config)
-    pos = torch.arange(l, device=x.device)
-    ctx = torch.empty((b, h, l, dk), dtype=torch.float32, device=x.device)
-    for q0 in range(0, l, chunk):
-        q1 = min(l, q0 + chunk)
-        qc = q[:, :, q0:q1].float()
-        acc = torch.zeros((b, h, q1 - q0, dk), dtype=torch.float32, device=x.device)
-        norm = torch.zeros((b, h, q1 - q0, 1), dtype=torch.float32, device=x.device)
-        run_max = torch.full_like(norm, float("-inf"))
-        for k0 in range(0, l, chunk):
-            k1 = min(l, k0 + chunk)
-            bias = table[:, pos[None, k0:k1] - pos[q0:q1, None] + l - 1]
-            scores = torch.matmul(qc, k[:, :, k0:k1].float().transpose(-1, -2))
-            scores = scores + bias[None]
-            keep = mask[:, None, None, k0:k1]
-            scores = torch.where(keep, scores, NEG)
-            new_max = torch.maximum(run_max, scores.amax(dim=-1, keepdim=True))
-            correction = torch.exp(run_max - new_max)
-            p = torch.exp(scores - new_max) * keep.float()
-            acc = acc * correction + torch.matmul(p, v[:, :, k0:k1].float())
-            norm = norm * correction + p.sum(dim=-1, keepdim=True)
-            run_max = new_max
-        ctx[:, :, q0:q1] = acc / torch.clamp(norm, min=1e-30)
-    return _output(x, ctx, params, residual)
 
 
 def _mlp(x, params, config: T5Config, residual=True):
-    if config.use_fused_ffn == "auto" or bool(config.use_fused_ffn):
-        from ..ops.ffn_cuda import fused_ffn_t5
-
-        b, l, d = x.shape
-        out = fused_ffn_t5(
-            x.reshape(b * l, d), params["ln"], params["wi"], params["wo"],
-            eps=config.layer_norm_eps, residual=residual,
-        )
-        return out.reshape(b, l, d)
-    normed = rms_norm(x, params["ln"], config.layer_norm_eps)
-    hidden = torch.relu(torch.matmul(normed, params["wi"]))
-    out = torch.matmul(hidden, params["wo"])
-    return x + out if residual else out
+    """FFN block, on kernel G's wrapper."""
+    b, l, d = x.shape
+    out = ffn_cuda.fused_ffn_t5(x.reshape(b * l, d), params["ln"],
+                                params["wi"], params["wo"],
+                                eps=config.layer_norm_eps, residual=residual)
+    return out.reshape(b, l, d)
 
 
-def attention_route(config: T5Config, length: int, device) -> str:
-    """The attention route of an encode at padded length `length` whose
-    activations are on `device`: "flash" (kernel H) or "blockwise" above
-    blockwise_above; below it "short" (kernel I) or "dense"."""
-    if length > config.blockwise_above:
-        flash = config.use_flash_kernel
-        return "flash" if flash == "auto" or bool(flash) else "blockwise"
-    short = config.use_short_kernel
-    if short == "auto":
-        short = (torch.device(device).type == "cuda"
-                 and config.dtype == torch.bfloat16 and config.d_kv == 128)
-    return "short" if short and length <= config.short_kernel_max else "dense"
+def attention_route(config: T5Config, length: int) -> str:
+    """The attention of an encode at padded length `length`: dense ("I",
+    kernel I's wrapper) up to blockwise_above, flash ("H", kernel H's
+    wrapper) above it."""
+    return "I" if length <= config.blockwise_above else "H"
 
 
 def encode(
@@ -273,23 +175,17 @@ def encode(
     block returns its partial sum without x, and x is added once to
     `reduce(partial)` (the sum over ranks, in fp32) before the one cast to
     config.dtype."""
-    from ..ops.flash_attention import offset_bias_table
-
     x = params["embedding"][token_ids.long()].to(config.dtype)
-    mask = mask.to(torch.bool)
     length = token_ids.shape[1]
-    rel = params["rel_embedding"]
-    route = attention_route(config, length, x.device)
-    if route == "dense":
-        bias = position_bias(rel, length, length, config)
-        attend = functools.partial(_attention, bias=bias, mask=mask)
+    table = offset_bias_table(params["rel_embedding"], length,
+                              config.rel_buckets, config.rel_max_distance)
+    if attention_route(config, length) == "I":
+        context = short_cuda.short_attention_t5
     else:
-        table = offset_bias_table(
-            rel, length, config.rel_buckets, config.rel_max_distance
-        )
-        fn = {"short": _attention_short, "flash": _attention_flash,
-              "blockwise": _attention_blockwise}[route]
-        attend = functools.partial(fn, mask=mask, table=table)
+        context = functools.partial(flash_cuda.flash_attention_t5,
+                                    block=config.attention_chunk)
+    attend = functools.partial(_attention, mask=mask.to(torch.bool),
+                               table=table, context=context)
 
     def block(fn, x, layer):
         if reduce is None:

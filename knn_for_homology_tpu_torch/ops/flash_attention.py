@@ -1,10 +1,10 @@
-"""T5 flash attention, plain version, and its offset-bias table (port of
+"""T5 flash attention, plain version (port of
 knn_for_homology_tpu/ops/flash_attention.py:flash_attention_t5).
 
 T5's relative-position bias depends only on k_pos - q_pos. The JAX kernel
 feeds it as Toeplitz [n_rel, H, block, block] blocks (a Mosaic workaround);
-here one [H, 2L-1] fp32 table per encode, shared by all layers, holds the
-bias of every offset: table[h, k - q + L - 1].
+here one [H, 2L-1] fp32 table holds the bias of every offset:
+table[h, k - q + L - 1] (the encoder's models/t5.py:offset_bias_table).
 
 The online softmax is the Pallas kernel's: running max from -1e9, masked
 keys filled with -1e9 AND their p multiplied by 0 (a row with no real key
@@ -16,22 +16,7 @@ same with 64-key steps.
 
 import torch
 
-from ..models.t5 import offset_buckets
-
 NEG = -1e9
-
-
-def offset_bias_table(
-    rel_embedding: torch.Tensor,  # [buckets, H]
-    length: int,
-    num_buckets: int,
-    max_distance: int,
-) -> torch.Tensor:
-    """[H, 2·length − 1] fp32: table[h, d + length − 1] = the bias of
-    offset d = k_pos − q_pos for head h, on rel_embedding's device."""
-    buckets = offset_buckets(length, length, num_buckets, max_distance)
-    buckets = buckets.to(rel_embedding.device)
-    return rel_embedding[buckets].float().t().contiguous()
 
 
 def flash_attention_plain(

@@ -1,13 +1,14 @@
 """Dense T5 attention for short sequences, plain version (port of
 knn_for_homology_tpu/ops/short_attention.py:short_attention_t5).
 
-Numerics of models/t5.py:_attention: exact fp32 scores plus the bias, the
--1e9 mask fill (p is not zeroed, so a row with every key masked softmaxes
-to uniform over its L keys), max, exp, sum and divide in fp32, p cast to
-v's dtype, PV summed in fp32 and cast once. The bias comes as the [H, 2L-1]
-fp32 offset table of ops/flash_attention.py:offset_bias_table, expanded
-here to the dense [H, L, L] bias. Kernel I (csrc/short_t5.cu, wrapper
-ops/short_cuda.py) computes the same for L ≤ 1024 from the table itself.
+Numerics of the JAX package's dense T5 attention: exact fp32 scores plus
+the bias, the -1e9 mask fill (p is not zeroed, so a row with every key
+masked softmaxes to uniform over its L keys), max, exp, sum and divide in
+fp32, p cast to v's dtype, PV summed in fp32 and cast once. The bias comes
+as the [H, 2L-1] fp32 offset table of models/t5.py:offset_bias_table,
+expanded here to the dense [H, L, L] bias. Kernel I (csrc/short_t5.cu,
+wrapper ops/short_cuda.py) computes the same for L ≤ 1024 from the table
+itself.
 """
 
 import torch

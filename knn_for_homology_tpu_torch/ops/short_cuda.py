@@ -4,7 +4,7 @@ Port of knn_for_homology_tpu/ops/short_attention.py:_short_kernel (entry
 short_attention_t5). A CUDA tensor goes to the kernel; a CPU tensor to
 ops/short_attention.py:short_attention_plain. The kernel takes bf16 q/k/v
 with d_kv = 128, a bool mask and the fp32 [H, 2L-1] offset table of
-ops/flash_attention.py:offset_bias_table.
+models/t5.py:offset_bias_table.
 """
 
 import torch
@@ -13,7 +13,7 @@ from . import _build
 from .attention_checks import check_qkv
 from .short_attention import short_attention_plain
 
-MAX_LEN = 1024  # the route's gate (models/t5.py short_kernel_max)
+MAX_LEN = 1024  # the longest L the kernel takes (csrc/short_t5.cu MAX_L)
 
 
 def short_attention_t5(

@@ -127,10 +127,10 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
+    from knn_for_homology_tpu_torch.models.t5 import offset_bias_table
     from knn_for_homology_tpu_torch.ops import _build, flash_cuda, short_cuda
     from knn_for_homology_tpu_torch.ops.flash_attention import (
         flash_attention_plain,
-        offset_bias_table,
     )
     from knn_for_homology_tpu_torch.ops.short_attention import (
         short_attention_plain,

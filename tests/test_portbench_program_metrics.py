@@ -302,9 +302,9 @@ def test_short_attention_roofline_reads_nothing(recorded, case):
 
 def test_encode_span_counts_kernel_i_launches(monkeypatch):
     """Each "embed.encode" span counts the launches of kernel I's wrapper
-    in its encode: one a layer where the route takes I (on the CPU only
-    with use_short_kernel=True; the wrapper's plain version is counted
-    here as the card would count its kernel), none on the dense route."""
+    in its encode: one a layer where the batch's padded length takes dense
+    attention (the wrapper's plain version is counted here as the card
+    would count its kernel), none where it takes flash attention."""
     import dataclasses
 
     import torch
@@ -325,8 +325,8 @@ def test_encode_span_counts_kernel_i_launches(monkeypatch):
     params = t5.init_params(t5.TINY, seed=0, device="cpu")
     seqs = ["MKTAYIAKQR" * 3, "ACDEFGHIK", "W" * 40]
     counts = {}
-    for flag in (True, "auto", False):
-        config = dataclasses.replace(t5.TINY, use_short_kernel=flag,
+    for route, above in (("dense", t5.TINY.blockwise_above), ("flash", 8)):
+        config = dataclasses.replace(t5.TINY, blockwise_above=above,
                                      dtype=torch.float32)
         embedder = ProtT5Embedder(config=config, params=params,
                                   token_budget=64, device="cpu")
@@ -335,5 +335,5 @@ def test_encode_span_counts_kernel_i_launches(monkeypatch):
             embedder.embed_pooled(seqs)
         encodes = [sp for sp in trace.spans() if sp.name == "embed.encode"]
         assert len(encodes) == len(embedder.batches(seqs)) > 1
-        counts[flag] = {sp.counts["short_launches"] for sp in encodes}
-    assert counts == {True: {t5.TINY.num_layers}, "auto": {0}, False: {0}}
+        counts[route] = {sp.counts["short_launches"] for sp in encodes}
+    assert counts == {"dense": {t5.TINY.num_layers}, "flash": {0}}

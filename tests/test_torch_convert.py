@@ -44,20 +44,14 @@ def assert_trees_bit_equal(got, want):
 
 
 def assert_configs_equal(got, want):
-    """Every field the two configs share, the dtype apart (torch vs jnp)
-    and a T5 config's short_kernel_max, which is each package's own
-    kernel's reach: the port's is kernel I's on the card."""
-    from knn_for_homology_tpu_torch.ops import short_cuda
-
-    own = {"dtype", "short_kernel_max"}
+    """Every field the two configs share, the dtype apart (torch vs jnp)."""
+    own = {"dtype"}
     tfields = {f.name for f in dataclasses.fields(got)}
     shared = [f.name for f in dataclasses.fields(want)
               if f.name in tfields and f.name not in own]
     assert shared
     for name in shared:
         assert getattr(got, name) == getattr(want, name), name
-    if "short_kernel_max" in tfields:
-        assert got.short_kernel_max == short_cuda.MAX_LEN
 
 
 def _dump(model, cfg, tmp_path):

@@ -1,6 +1,7 @@
 """The encoder's CUDA kernels (G: fused FFN, H: flash attention, I: short
 attention) against their plain PyTorch versions, on the card, and the
-encoder on the card against the encoder on the CPU.
+encoder on the card against the encoder on the CPU, on the kernels and on
+their plain versions swapped in for the wrappers.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it runs without the suite's conftest:
@@ -10,7 +11,9 @@ no jax, so it runs without the suite's conftest:
 Tolerance: both sides round their result to bf16 once, from fp32 sums taken
 in different orders (and p, for H, rounded at different running maxima), so
 they may differ by an ulp or two of bf16 (2^-8 relative); every comparison
-allows 2^-6 of the reference's largest magnitude (4 ulps there).
+allows 2^-6 of the reference's largest magnitude (4 ulps there). An fp32
+encode on the card through the plain versions differs from the CPU's only
+by fp32 sums in other orders: 2^-13 of the largest magnitude.
 """
 
 import dataclasses
@@ -20,12 +23,10 @@ import pytest
 import torch
 
 from knn_for_homology_tpu_torch.models import t5
+from knn_for_homology_tpu_torch.models.t5 import offset_bias_table
 from knn_for_homology_tpu_torch.ops import ffn_cuda, flash_cuda, short_cuda
 from knn_for_homology_tpu_torch.ops.ffn import fused_ffn_plain
-from knn_for_homology_tpu_torch.ops.flash_attention import (
-    flash_attention_plain,
-    offset_bias_table,
-)
+from knn_for_homology_tpu_torch.ops.flash_attention import flash_attention_plain
 from knn_for_homology_tpu_torch.ops.short_attention import short_attention_plain
 
 pytestmark = pytest.mark.cuda
@@ -176,13 +177,39 @@ CARD_CONFIG = t5.T5Config(vocab_size=32, d_model=256, d_kv=128, d_ff=512,
                           num_layers=2, num_heads=2)
 
 
-@pytest.mark.parametrize("length,flags", [
-    (96, {"use_short_kernel": False}),  # dense attention + kernel G
-    (96, {"use_short_kernel": True}),  # + kernel I
-    (200, {"blockwise_above": 128}),  # kernel H + kernel G
-])
-def test_encode_on_card_matches_cpu(cuda, length, flags):
-    config = dataclasses.replace(CARD_CONFIG, **flags)
+# the wrappers of G, H and I, kept here because a test may swap them out
+WRAPPERS = (ffn_cuda.fused_ffn_t5, flash_cuda.flash_attention_t5,
+            short_cuda.short_attention_t5)
+
+
+def _launches():
+    return tuple(fn.launches for fn in WRAPPERS)
+
+
+PLAIN = {ffn_cuda: ("fused_ffn_t5", fused_ffn_plain),
+         flash_cuda: ("flash_attention_t5", flash_attention_plain),
+         short_cuda: ("short_attention_t5", short_attention_plain)}
+
+
+def _plain_on_card(monkeypatch, *modules):
+    """These kernels' wrappers swapped for their plain versions, which the
+    encoder then runs on the card (it looks the wrappers up at each
+    encode)."""
+    for mod in modules:
+        name, plain = PLAIN[mod]
+        monkeypatch.setattr(mod, name, plain)
+
+
+# (length, config fields, kernels whose plain versions run on the card,
+# launches of G, H, I a layer)
+@pytest.mark.parametrize("length,fields,plain,launches", [
+    (96, {}, (short_cuda,), (1, 0, 0)),  # I's plain version + kernel G
+    (96, {}, (), (1, 0, 1)),  # kernel I + kernel G
+    (200, {"blockwise_above": 128}, (), (1, 1, 0)),  # kernel H + kernel G
+], ids=["plain-i", "kernel-i", "kernel-h"])
+def test_encode_on_card_matches_cpu(cuda, monkeypatch, length, fields, plain,
+                                    launches):
+    config = dataclasses.replace(CARD_CONFIG, **fields)
     params = t5.init_params(config, seed=0, device="cpu")
     rng = np.random.RandomState(4)
     ids = torch.from_numpy(rng.randint(3, 24, size=(3, length)))
@@ -190,17 +217,21 @@ def test_encode_on_card_matches_cpu(cuda, length, flags):
     mask[1, length // 2:] = False
     want = t5.T5Encoder(config, params)(ids, mask)
     card = t5.T5Encoder(config, params).to(cuda)
+    _plain_on_card(monkeypatch, *plain)
+    before = _launches()
     got = card(ids.to(cuda), mask.to(cuda)).cpu()
+    assert tuple(b - a for a, b in zip(before, _launches())) == tuple(
+        n * config.num_layers for n in launches)
     # two layers of bf16 roundings taken in different places
     assert_bf16_close(got, want, tol=2.0**-5)
 
 
 @pytest.mark.parametrize("length", [640, 1024])
-def test_encode_auto_takes_kernel_i(cuda, length):
-    """"auto" on the card at a padded length in (512, blockwise_above]: one
-    launch of kernel I a layer, held to the dense torch route
-    (use_short_kernel=False) on the same card, ragged rows and a row with
-    no real token."""
+def test_encode_auto_takes_kernel_i(cuda, monkeypatch, length):
+    """At a padded length in (512, blockwise_above] the card's encode
+    launches kernel I once a layer, held to I's plain version on the same
+    card (swapped in for I's wrapper), ragged rows and a row with no real
+    token."""
     params = t5.init_params(CARD_CONFIG, seed=1, device=cuda)
     rng = np.random.RandomState(5)
     ids = torch.from_numpy(rng.randint(3, 24, size=(4, length))).to(cuda)
@@ -208,12 +239,42 @@ def test_encode_auto_takes_kernel_i(cuda, length):
     mask[1, length - 77:] = False
     mask[2, 300:] = False
     mask[3] = False
-    before = short_cuda.short_attention_t5.launches
-    got = t5.T5Encoder(CARD_CONFIG, params)(ids, mask)
-    assert (short_cuda.short_attention_t5.launches - before
-            == CARD_CONFIG.num_layers)
-    dense = dataclasses.replace(CARD_CONFIG, use_short_kernel=False)
-    before = short_cuda.short_attention_t5.launches
-    want = t5.T5Encoder(dense, params)(ids, mask)
-    assert short_cuda.short_attention_t5.launches == before
+    encoder = t5.T5Encoder(CARD_CONFIG, params)
+    kernel_i = short_cuda.short_attention_t5
+    before = kernel_i.launches
+    got = encoder(ids, mask)
+    assert kernel_i.launches - before == CARD_CONFIG.num_layers
+    _plain_on_card(monkeypatch, short_cuda)
+    before = kernel_i.launches
+    want = encoder(ids, mask)
+    assert kernel_i.launches == before
     assert_bf16_close(got, want)
+
+
+def test_fp32_encode_on_card_refused_by_the_kernels(cuda, monkeypatch):
+    """An fp32 config, which none of the kernels takes, past
+    blockwise_above (L = 1100 > 1024): on the card the encoder hands
+    attention to kernel H's wrapper, which refuses it (no launch, no quiet
+    plain version); with the wrappers swapped for their plain versions, as
+    chip_smoke.py's plain_kernels does, it encodes on the card and matches
+    the CPU, ragged rows."""
+    config = dataclasses.replace(CARD_CONFIG, dtype=torch.float32)
+    params = t5.init_params(config, seed=2, device="cpu")
+    rng = np.random.RandomState(6)
+    length = 1100
+    assert t5.attention_route(config, length) == "H"
+    ids = torch.from_numpy(rng.randint(3, 24, size=(3, length)))
+    mask = torch.ones((3, length), dtype=torch.bool)
+    mask[1, 700:] = False
+    mask[2, length - 77:] = False
+    want = t5.T5Encoder(config, params)(ids, mask)
+    card = t5.T5Encoder(config, params).to(cuda)
+    before = _launches()
+    with pytest.raises(TypeError, match="kernel H takes bf16"):
+        card(ids.to(cuda), mask.to(cuda))
+    _plain_on_card(monkeypatch, ffn_cuda, flash_cuda, short_cuda)
+    got = card(ids.to(cuda), mask.to(cuda)).cpu()
+    assert _launches() == before
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= 2.0**-13 * float(want.abs().max()), err

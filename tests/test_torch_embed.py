@@ -7,8 +7,9 @@ Tolerances: pooling in fp32 is exact up to sum order (1e-6). Pooled bf16
 encoder outputs differ by the encoder's bf16 rounding flips (tests/
 test_torch_t5.py), averaged over residues: max difference ≤ 2^-6 of the
 largest |value|. The JAX side runs its CPU routes ("auto" = XLA dense MLP
-and blockwise scan), the port its accelerator routes ("auto" = fused FFN
-and flash), so these tests also hold the routes against each other.
+and blockwise scan), the port its one route (fused FFN, dense attention up
+to blockwise_above and flash above, as plain versions on the CPU), so these
+tests also hold the routes against each other.
 """
 
 import dataclasses
@@ -176,6 +177,36 @@ def test_port_checkpoint_round_trip(tmp_path):
         assert torch.equal(a, b)
 
 
+def _jax_meta():
+    """A checkpoint meta as the JAX package's config gives it: every field
+    but the dtype, its four route flags included."""
+    config = dataclasses.replace(jt5.TINY, **BLOCKWISE)
+    meta = {k: v for k, v in dataclasses.asdict(config).items() if k != "dtype"}
+    assert {"use_flash_kernel", "use_short_kernel", "short_kernel_max",
+            "use_fused_ffn"} <= set(meta)
+    return meta
+
+
+def test_checkpoint_meta_drops_the_jax_route_flags(tmp_path):
+    """A .npz whose meta carries the JAX package's route flags (written by
+    the JAX package, or by the port before it dropped them) loads: the
+    four flags are dropped, every other field is kept."""
+    params = jt5.init_params(jt5.TINY, seed=3)
+    jsave_params(params, tmp_path / "ck.npz", meta={"config": _jax_meta()})
+    config, _, vocab = load_t5_checkpoint(tmp_path / "ck.npz", device="cpu")
+    assert config == dataclasses.replace(tt5.TINY, **BLOCKWISE) and vocab is None
+
+
+def test_checkpoint_meta_unknown_field_raises(tmp_path):
+    params = tt5.init_params(tt5.TINY, seed=3, device="cpu")
+    from knn_for_homology_tpu_torch.models.convert import save_params
+
+    meta = {"config": {**_jax_meta(), "no_such_field": 1}}
+    save_params(params, tmp_path / "ck.npz", meta=meta)
+    with pytest.raises(TypeError, match="no_such_field"):
+        load_t5_checkpoint(tmp_path / "ck.npz", device="cpu")
+
+
 def test_registry_names():
     assert isinstance(get_embedder("AA Composition"), AACompositionEmbedder)
     with pytest.raises(KeyError):
@@ -190,9 +221,11 @@ def test_registry_names():
 def test_forward_step_matches_graft_entry(fused):
     """Top-13 ids equal to the JAX program's except swaps of near-ties: a
     slot may hold another id only if the JAX side scores that id within
-    TIE of its own pick there. The pooled bf16 vectors differ by rounding
-    flips, which move cosines by up to ~5e-4 (fused FFN, the port's "auto")
-    and ~2e-4 (dense MLP, the route the JAX program takes on the CPU)."""
+    TIE of its own pick there (the JAX cosines under its FFN flag `fused`;
+    on the CPU both flags take its dense MLP, the route the JAX program
+    takes). The port runs its one route, kernel G's plain version for the
+    FFN; its pooled bf16 vectors differ from the JAX program's by rounding
+    flips, which move cosines by up to ~5e-4."""
     import __graft_entry__ as graft
     from knn_for_homology_tpu.models.pooling import mean_pool
     from knn_for_homology_tpu.ops.distance import l2_normalize
@@ -201,9 +234,9 @@ def test_forward_step_matches_graft_entry(fused):
     fn, (params, db, ids, mask) = graft.entry()
     want_sims, want_ids = (np.asarray(a) for a in fn(params, db, ids, mask))
     config = tt5.T5Config(vocab_size=32, d_model=128, d_kv=32, d_ff=256,
-                          num_layers=2, num_heads=4, use_fused_ffn=fused)
+                          num_layers=2, num_heads=4)
     jconfig = jt5.T5Config(vocab_size=32, d_model=128, d_kv=32, d_ff=256,
-                           num_layers=2, num_heads=4)
+                           num_layers=2, num_heads=4, use_fused_ffn=fused)
     pooled = l2_normalize(mean_pool(jt5.encode(params, ids, mask, jconfig), mask))
     want_all = np.asarray(pooled) @ np.asarray(db).T  # [16, 1024]
     encoder = tt5.T5Encoder(config, params_to_torch(

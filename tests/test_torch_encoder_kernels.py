@@ -12,6 +12,8 @@ fp32 values that may differ in the last bits, so they may differ by a bf16
 ulp: max difference ≤ 2^-6 of the largest |value| (2 ulps there).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,12 +25,10 @@ from knn_for_homology_tpu.ops.flash_attention import (
     toeplitz_bias_blocks,
 )
 from knn_for_homology_tpu.ops.short_attention import short_attention_t5
+from knn_for_homology_tpu_torch.models.t5 import offset_bias_table
 from knn_for_homology_tpu_torch.ops import ffn_cuda, flash_cuda, short_cuda
 from knn_for_homology_tpu_torch.ops.ffn import fused_ffn_plain
-from knn_for_homology_tpu_torch.ops.flash_attention import (
-    flash_attention_plain,
-    offset_bias_table,
-)
+from knn_for_homology_tpu_torch.ops.flash_attention import flash_attention_plain
 from knn_for_homology_tpu_torch.ops.short_attention import short_attention_plain
 
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -108,7 +108,7 @@ def test_short_plain_matches_pallas(dtype, length):
     (jq, tq), (jk, tk), (jv, tv), mask, rel = _attention_inputs(2, 3, 2, length, 16, dtype)
     if length % 128:
         # the Pallas call pads L to 128 with masked keys, which an all-masked
-        # row would average over; the port (like models/t5.py:_attention)
+        # row would average over; the port's dense attention
         # averages over the L keys, so this case keeps one real key
         mask[-1, 0] = True
     config = jt5.T5Config(num_heads=2)
@@ -168,3 +168,63 @@ def test_kernel_wrappers_check_shapes():
     with pytest.raises(ValueError):  # I takes the offset table, not [H, L, L]
         short_cuda.short_attention_t5(q, q, q, torch.ones(1, 5, dtype=torch.bool),
                                       torch.zeros(2, 5, 5))
+
+
+BF16, FP32, FP16 = torch.bfloat16, torch.float32, torch.float16
+
+
+class KernelReached(Exception):
+    """Raised in place of building the kernel library: the wrapper's checks
+    let the call through to its kernel."""
+
+
+@pytest.mark.parametrize("kernel,dtype,width,size,refusal", [
+    ("I", BF16, 128, short_cuda.MAX_LEN, None),
+    ("I", BF16, 128, short_cuda.MAX_LEN + 1, "L ≤ 1024"),
+    ("I", FP32, 128, 512, "bf16"),
+    ("I", FP16, 128, 512, "bf16"),
+    ("I", BF16, 64, 512, "d_kv 128"),
+    ("H", BF16, 128, flash_cuda.MAX_LEN, None),
+    ("H", BF16, 128, flash_cuda.MAX_LEN + 1, "L ≤ 24000"),
+    ("H", FP32, 128, 1152, "bf16"),
+    ("H", FP16, 128, 1152, "bf16"),
+    ("H", BF16, 64, 1152, "d_kv 128"),
+    ("G", BF16, 1024, 16384, None),
+    ("G", FP32, 1024, 16384, "bf16"),
+    ("G", FP16, 1024, 16384, "bf16"),
+    ("G", BF16, 768, 3072, "d_model in"),
+    ("G", BF16, 1024, 1000, "d_model in"),
+])
+def test_kernel_wrappers_refuse_past_their_reach(monkeypatch, kernel, dtype,
+                                                 width, size, refusal):
+    """Off the CPU each wrapper hands its kernel exactly the calls the
+    kernel takes (width: d_kv for H and I, d_model for G; size: L, or d_ff
+    for G) and raises, naming the limit, for any other; it never runs its
+    plain version there. Shape-only meta tensors stand for the card's, and
+    the library build is replaced by KernelReached."""
+    from knn_for_homology_tpu_torch.ops import _build
+
+    def library():
+        raise KernelReached(kernel)
+
+    monkeypatch.setattr(_build, "library", library)
+    meta = torch.device("meta")
+    if kernel == "G":
+        x = torch.empty(8, width, dtype=dtype, device=meta)
+        call = functools.partial(
+            ffn_cuda.fused_ffn_t5, x, x[0],
+            torch.empty(width, size, dtype=dtype, device=meta),
+            torch.empty(size, width, dtype=dtype, device=meta))
+    else:
+        q = torch.empty(1, 1, size, width, dtype=dtype, device=meta)
+        fn = (short_cuda.short_attention_t5 if kernel == "I"
+              else flash_cuda.flash_attention_t5)
+        call = functools.partial(
+            fn, q, q, q, torch.empty(1, size, dtype=torch.bool, device=meta),
+            torch.empty(1, 2 * size - 1, device=meta))
+    if refusal is None:
+        with pytest.raises(KernelReached):
+            call()
+    else:
+        with pytest.raises((TypeError, ValueError), match=refusal):
+            call()

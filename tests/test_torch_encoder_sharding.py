@@ -30,12 +30,14 @@ from knn_for_homology_tpu_torch.parallel.mesh import spawn
 
 RANKS = 4
 TOL = 1e-5
-# (length, config flags): dense attention + the fused FFN's plain version;
-# the flash route (L > blockwise_above) + the dense MLP
+# (length, fields of both configs, the JAX config's route flags): dense
+# attention + the fused FFN on both sides; flash attention (L >
+# blockwise_above) on both sides, held to the JAX package's flash kernel
+# and dense MLP (the port has one FFN, kernel G's plain version here)
 ROUTES = {
-    "dense_fused": (24, {}),
-    "flash_mlp": (40, {"blockwise_above": 16, "attention_chunk": 16,
-                       "use_flash_kernel": True, "use_fused_ffn": False}),
+    "dense_fused": (24, {}, {}),
+    "flash_mlp": (40, {"blockwise_above": 16, "attention_chunk": 16},
+                  {"use_flash_kernel": True, "use_fused_ffn": False}),
 }
 
 
@@ -57,8 +59,8 @@ def _rank_encode(params_np):
                      | {k: tuple(v.shape) for k, v in
                         local["layers"][0]["mlp"].items()}
                      | {"rel": tuple(local["rel_embedding"].shape)}}
-    for name, (length, flags) in ROUTES.items():
-        config = dataclasses.replace(tt5.TINY, dtype=torch.float32, **flags)
+    for name, (length, shared, _) in ROUTES.items():
+        config = dataclasses.replace(tt5.TINY, dtype=torch.float32, **shared)
         ids, mask = (torch.from_numpy(a) for a in _inputs(length))
         out[name] = (encode_sharded(local, ids, mask, config, mesh).numpy(),
                      tt5.encode(full, ids, mask, config).numpy())
@@ -109,8 +111,9 @@ def test_encode_sharded_equals_jax(ranks, jax_params, route):
         shard_t5_params as jshard,
     )
 
-    length, flags = ROUTES[route]
-    config = dataclasses.replace(jt5.TINY, dtype=jnp.float32, **flags)
+    length, shared, jax_flags = ROUTES[route]
+    config = dataclasses.replace(jt5.TINY, dtype=jnp.float32, **shared,
+                                 **jax_flags)
     mesh = jmesh(RANKS, axis_names=("data", "model"), shape=(2, 2))
     ids, mask = _inputs(length)
     want = np.asarray(jencode(jshard(jax_params, mesh), jnp.asarray(ids),

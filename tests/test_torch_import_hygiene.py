@@ -5,6 +5,7 @@ module). The same holds for chip_smoke.py, which runs on a machine without
 jax. Runs in a clean subprocess because this test process has imported jax
 long ago."""
 
+import ast
 import re
 import subprocess
 import sys
@@ -126,3 +127,35 @@ def test_benchmark_files_listed():
     assert "portbench/reference/xlnet.py" in BENCH_FILES
     assert "portbench/drivers/embed_xlnet.py" in BENCH_FILES
     assert "portbench/drivers/graph_online.py" in BENCH_FILES
+
+
+def _imported_modules(path: Path):
+    """Absolute names of the modules a file imports, relative imports
+    resolved against its package."""
+    package = ".".join(path.relative_to(PORT.parent).parent.parts)
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".")
+            if node.level:
+                base = base[:len(base) - node.level + 1]
+            else:
+                base = []
+            name = ".".join(base + ([node.module] if node.module else []))
+            yield name
+            yield from (f"{name}.{alias.name}" for alias in node.names)
+
+
+def test_ops_import_no_models():
+    """The kernels and their plain versions (ops/) sit below the models
+    that call them: no module under ops/ imports models/."""
+    models = "knn_for_homology_tpu_torch.models"
+    ops = sorted((PORT / "ops").glob("*.py"))
+    assert len(ops) >= 15
+    hits = [(p.name, name) for p in ops for name in _imported_modules(p)
+            if name == models or name.startswith(models + ".")]
+    assert not hits, hits
+    # the walk resolves what the models import from ops/
+    assert "knn_for_homology_tpu_torch.ops.short_cuda" in set(
+        _imported_modules(PORT / "models" / "t5.py"))

@@ -86,7 +86,7 @@ def test_embed_span_tree(embedder):
             assert outer.t0 <= s.t0 <= s.t1 <= outer.t1
     assert all(s.counts == {} for s in spans
                if s.name not in ("embed.batch", "embed.encode"))
-    # kernel I's launches: none on the CPU's dense route
+    # kernel I's launches: none on the CPU (its plain version runs)
     assert all(s.counts == {"short_launches": 0} for s in spans
                if s.name == "embed.encode")
     np.testing.assert_array_equal(pooled, embedder.embed_pooled(seqs))
