@@ -20,14 +20,16 @@ path; and the MMseqs2 record I/O. Phases:
   3. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it, with times (D, E, F: 1024 queries of the
      bench's plan from plan_fingerprint, which must be the plan the recall
-     anchors hold at: W = 256, R = 7, R = 9 for sym2);
+     anchors hold at: W = 256, R = 7, R = 9 for sym2; F and J beside the
+     passes one product spans in their plan, P);
   4. the main path end to end (pipelines.benchmark.run on a seeded dataset
      written in the standard layout), launch counts reset just before;
      then a second, warm run under torch.profiler: kernel C's device time,
      launches and GCUPS over the real cells, the host-to-device copies and
      the device's busy share;
   5. exact k = 1000 through FlatIndex.search on the same index; the
-     approx and sq8 backends reach kernels A and F;
+     approx and sq8 backends reach kernels A and F (every F launch of the
+     sq8 search spanning more than one pass a product);
   6. the small-input check: the same pipeline on a small fixture on the
      card and on the CPU (plain versions) must give identical results;
   7. the port's bench at the headline shape (default modes, plus sq8 so
@@ -706,8 +708,9 @@ def check_packed_kernels(db, q, kernels):
         **e_bound,
     )
 
-    # F: int8 queries (sym, R = 7; sym2, R = 9), buffers bit-equal
-    f_times = {}
+    # F: int8 queries (sym, R = 7; sym2, R = 9), buffers bit-equal; the
+    # passes one product spans in each plan
+    f_times, f_groups = {}, {}
     for storage, r_f in (("sq8-sym", r), ("sq8-sym2", r_hi)):
         q8, q_lo, _ = pc.quantize_queries(q, storage == "sq8-sym2")
         args = (q8, pq.db_i8, w, r_f, "cosine", storage, pq.scales, q_lo)
@@ -720,8 +723,11 @@ def check_packed_kernels(db, q, kernels):
         )
         f_times[storage] = (cuda_ms(lambda: kern(*args)),
                             cuda_ms(lambda: plain(*args)))
+        f_groups[storage] = pc.passes_per_product(storage, N_TRAIN, DIM, w,
+                                                  r_f)
         log(f"phase 3 kernel F segment_packed_sq8sym {storage} {line},"
-            f" R={r_f}]: buffers bit-equal, {f_times[storage][0]:.3f} ms vs"
+            f" R={r_f}]: buffers bit-equal, {f_times[storage][0]:.3f} ms"
+            f" (P = {f_groups[storage]} passes a product) vs"
             f" plain {f_times[storage][1]:.3f} ms")
     ms, plain_ms = f_times["sq8-sym"]
     # the yardstick, product only: the int8 [Q, N] dots as one
@@ -737,7 +743,7 @@ def check_packed_kernels(db, q, kernels):
         replaces="knn_for_homology_tpu/ops/exact_pallas.py:266",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         library="torch._int_mm of the int8 operands, product only",
-        **f_bound,
+        passes_per_product=f_groups, **f_bound,
     )
 
 
@@ -1076,7 +1082,7 @@ def check_ivf_kernels(db, q_all, kernels, seed):
     q = torch.nn.functional.pad(q_all[:J_QUERIES], (0, pv.shape[1] - db.shape[1]))
     kern = ivf_cuda.segment_packed_indirect_kernel
     plain = ivf_cuda.segment_packed_indirect_plain
-    times = {}
+    times, groups = {}, {}
     for compute in ("sym", "sym2"):
         q8, q_lo, _ = packed_cuda.quantize_queries(q, compute == "sym2")
         args = (q8, pv, sc, pi, cells, tile, r, q_lo)
@@ -1085,6 +1091,8 @@ def check_ivf_kernels(db, q_all, kernels, seed):
             f"J {compute}: {int((got != want).sum())} slots differ from plain")
         times[compute] = (cuda_ms(lambda: kern(*args)),
                           cuda_ms(lambda: plain(*args)))
+        groups[compute] = ivf_cuda.passes_per_product(
+            J_BUDGET, q.shape[1], tile, r, compute == "sym2")
         if compute == "sym":
             rows = J_BUDGET * 128
             j_bound = bound(2 * J_QUERIES * rows * q.shape[1], "int8",
@@ -1093,7 +1101,8 @@ def check_ivf_kernels(db, q_all, kernels, seed):
         log(f"phase 3 kernel J ivf_indirect {compute} [{J_QUERIES} x"
             f" {J_BUDGET} cells ({J_BUDGET * 128} rows) x {q.shape[1]},"
             f" k={BENCH_K}, W={tile}, R={r}]: buffers bit-equal,"
-            f" {times[compute][0]:.3f} ms vs plain {times[compute][1]:.3f} ms")
+            f" {times[compute][0]:.3f} ms (P = {groups[compute]} passes a"
+            f" product) vs plain {times[compute][1]:.3f} ms")
     ms, plain_ms = times["sym"]
     # the yardstick, product only: the int8 dots against the union's rows,
     # gathered outside the timing, as one torch._int_mm call
@@ -1110,7 +1119,7 @@ def check_ivf_kernels(db, q_all, kernels, seed):
         replaces="knn_for_homology_tpu/ops/ivf_pallas.py:55",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         library="torch._int_mm of the gathered int8 rows, product only",
-        **j_bound,
+        passes_per_product=groups, **j_bound,
     )
 
     # K at four sharing levels of the pairs' nodes, each on the route K
@@ -3297,6 +3306,7 @@ def main() -> None:
     # is kernel A's exact search, sq8 at k = 1000 runs kernel F
     a_before = flat_cuda.flat_topk_kernel.launches
     f_before = packed_cuda.segment_packed_kernel.launches["F"]
+    f_groups = dict(packed_cuda.segment_packed_kernel.launches_by_group["F"])
     _, a_ids = FlatIndex(device="cuda", backend="approx").add(
         train).search(test, HITS)
     assert flat_cuda.flat_topk_kernel.launches > a_before
@@ -3306,12 +3316,18 @@ def main() -> None:
     _, s_ids = FlatIndex(device="cuda", backend="sq8").add(
         train).search(qk, 1000)
     assert packed_cuda.segment_packed_kernel.launches["F"] > f_before
+    f_groups = {
+        g: n - f_groups.get(g, 0)
+        for g, n in packed_cuda.segment_packed_kernel.launches_by_group[
+            "F"].items() if n > f_groups.get(g, 0)}
+    assert min(f_groups) > 1, f"sq8 F launches by passes a product {f_groups}"
     s_recall = float(np.mean(
         [len(set(a) & set(b)) / 1000 for a, b in zip(s_ids, ids)]
     ))
     assert s_recall >= 0.9, f"sq8 backend recall {s_recall}"
     log(f"phase 5 backends: approx k=13 ids equal to exact (kernel A),"
-        f" sq8 k=1000 recall {s_recall:.4f} against exact (kernel F)")
+        f" sq8 k=1000 recall {s_recall:.4f} against exact (kernel F;"
+        f" launches by passes a product {f_groups})")
 
     # ---- phase 6: small input, card vs CPU through the same pipeline
     with tempfile.TemporaryDirectory(prefix="knn_small_") as tmp:

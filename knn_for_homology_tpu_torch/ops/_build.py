@@ -35,7 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argument types (each returns cudaError_t, but
-# the *_blocks_per_sm and *_warps queries, which return a count or -1)
+# the *_blocks_per_sm, *_warps and *_group queries, which return a count
+# or -1)
 SIGNATURES = {
     # q, db, norms, vals, ids, part_vals, part_ids, q_n, n, d, k, splits,
     # l2, stream
@@ -52,6 +53,8 @@ SIGNATURES = {
     "knn_segment_packed": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
+    # variant, n, d, w, r -> passes one product of kernel F / J spans
+    "knn_segment_packed_group": [_I, _I, _I, _I, _I],
     # q, q_lo, pv, scales, ids, cells, buf, q_n, budget, table_rows, d, w,
     # r, jbits, two_level, stream
     "knn_ivf_indirect": [

@@ -20,6 +20,7 @@ import torch
 from . import _build
 from .exact_cuda import CANDIDATE_BYTES, plan
 from .packed_cuda import (
+    _group,
     _packed_sims,
     decode_packed,
     pack_lanes,
@@ -122,10 +123,27 @@ def segment_packed_indirect_kernel(
     )
     _build.check(code, "knn_ivf_indirect")
     segment_packed_indirect_kernel.launches += 1
+    by_group = segment_packed_indirect_kernel.launches_by_group
+    group = passes_per_product(budget, d, tile, r_slots, q_lo is not None)
+    by_group[group] = by_group.get(group, 0) + 1
     return buf
 
 
 segment_packed_indirect_kernel.launches = 0
+# launches by the passes one product spans (passes_per_product)
+segment_packed_indirect_kernel.launches_by_group = {}
+
+
+def passes_per_product(budget: int, d: int, tile: int, r_slots: int,
+                       two_level: bool) -> int:
+    """Passes of the W lanes that one product of kernel J spans in its
+    launch plan over `budget` cells (kernel F's plan, `packed_cuda.
+    passes_per_product`). Needs the built library."""
+    group = _group(4 if two_level else 3, budget * LANE, d, tile, r_slots)
+    if group < 1:
+        raise ValueError(f"no plan for J at budget={budget}, d={d},"
+                         f" W={tile}, R={r_slots}")
+    return group
 
 
 def union_plan(budget: int, k: int, recall_target: float):

@@ -26,9 +26,12 @@ quantisation.
 
 A CUDA tensor goes to the kernel; a CPU tensor to `segment_packed_plain`,
 which builds the same buffer in plain PyTorch. The decode is PyTorch on
-either device, as it was XLA outside the Pallas kernels.
+either device, as it was XLA outside the Pallas kernels. Kernel F's plan
+lets one int8 product span several passes where it can
+(`passes_per_product`); the wrapper counts its launches by that number.
 """
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -111,6 +114,33 @@ def quantize_queries(
 def pass_bits(n: int, db_tile: int) -> int:
     """jbits: the low bits of a packed slot that hold the reversed pass."""
     return max(1, (-(-n // db_tile) - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def _group(variant: int, n: int, d: int, w: int, r: int) -> int:
+    return _build.library().knn_segment_packed_group(variant, n, d, w, r)
+
+
+def passes_per_product(
+    storage: str, n: int, d: int, db_tile: int, r_slots: int,
+    dtype: torch.dtype = torch.bfloat16,
+) -> int:
+    """Passes of the W lanes that one tensor-core product of the kernel
+    spans in its launch plan at these shapes (csrc/segment_packed.cu
+    `knn_segment_packed_group`; d padded as the wrapper pads it): more than
+    one for kernel F where its plan groups passes, 1 for D (of `dtype`) and
+    E. Needs the built library."""
+    if storage == "native":
+        variant = 0 if dtype == torch.float32 else 1
+    else:
+        variant = _VARIANT[storage]
+    if variant:
+        d += -d % 16
+    group = _group(variant, n, d, db_tile, r_slots)
+    if group < 1:
+        raise ValueError(f"no plan for {storage} at n={n}, d={d},"
+                         f" W={db_tile}, R={r_slots}")
+    return group
 
 
 def _check(queries, db, db_tile, r_slots, metric, storage, scales, q_lo):
@@ -270,11 +300,17 @@ def segment_packed_kernel(
         variant, int(metric == "l2"), _build.stream_ptr(db.device),
     )
     _build.check(code, "knn_segment_packed")
-    segment_packed_kernel.launches[KERNEL_OF[storage]] += 1
+    name = KERNEL_OF[storage]
+    segment_packed_kernel.launches[name] += 1
+    by_group = segment_packed_kernel.launches_by_group[name]
+    group = _group(variant, n, d, db_tile, r_slots)
+    by_group[group] = by_group.get(group, 0) + 1
     return buf
 
 
 segment_packed_kernel.launches = {"D": 0, "E": 0, "F": 0}
+# launches by the passes one product spans (passes_per_product)
+segment_packed_kernel.launches_by_group = {"D": {}, "E": {}, "F": {}}
 
 
 def decode_packed(

@@ -451,6 +451,69 @@ def test_packed_large_r_routes(cuda, storage, r_slots):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def test_passes_per_product_plan(cuda):
+    # the plan's passes a product (csrc/segment_packed.cu plan_group): more
+    # than one for F (sym, sym2) at the all-vs-all's plan and for J (sym) at
+    # the IVF union scan's; always one for D (fp32, bf16) and E
+    w, r, _ = packed_cuda.packed_plan(131080, 1000, recall_target=0.98)
+    _, r_hi, _ = packed_cuda.packed_plan(131080, 1000, recall_target=0.995)
+    assert packed_cuda.passes_per_product("sq8-sym", 131080, 1024, w, r) > 1
+    assert packed_cuda.passes_per_product("sq8-sym2", 131080, 1024, w,
+                                          r_hi) > 1
+    tile, r_j, _ = ivf_cuda.union_plan(256, 1000, 0.995)
+    assert ivf_cuda.passes_per_product(256, 1024, tile, r_j, False) > 1
+    for storage, dtype in (("native", torch.float32),
+                           ("native", torch.bfloat16), ("sq8", None)):
+        for r_slots in (r, r_hi):
+            assert packed_cuda.passes_per_product(
+                storage, 131080, 1024, w, r_slots, dtype) == 1
+
+
+@pytest.mark.parametrize("storage,r_slots,d", [
+    ("sq8-sym", 7, 48), ("sq8-sym", 7, 1024), ("sq8-sym", 16, 1024),
+    ("sq8-sym2", 9, 1024)])
+@pytest.mark.parametrize("case", range(5))
+def test_packed_grouped_pass_counts(cuda, storage, r_slots, d, case):
+    # kernel F at 1, P - 1, P, P + 1 and 2P + 1 passes of its plan's P
+    # passes a product: fewer than P passes take one pass a product, a last
+    # group short of P passes masks the rest; 70 queries (a ragged query
+    # tile); d = 48 (one box: a group's passes all entered after its one
+    # stage) and 1024 (a pass entered after each stage); 32-lane tiles, and
+    # 16-lane ones (sym R = 16, sym2 R = 9)
+    group = packed_cuda.passes_per_product(storage, 64 * 256, d, 256, r_slots)
+    assert group > 1
+    passes = [1, group - 1, group, group + 1, 2 * group + 1][case]
+    n = passes * 256
+    want_group = group if passes >= group else 1
+    assert packed_cuda.passes_per_product(storage, n, d, 256,
+                                          r_slots) == want_group
+    ops = _packed_operands(30 + case, storage, n, 70, d, cuda)
+    by_group = packed_cuda.segment_packed_kernel.launches_by_group["F"]
+    before = by_group.get(want_group, 0)
+    got = packed_cuda.segment_packed_kernel(
+        db_tile=256, r_slots=r_slots, metric="ip", **ops)
+    assert by_group[want_group] == before + 1
+    want = packed_cuda.segment_packed_plain(
+        db_tile=256, r_slots=r_slots, metric="ip", **ops)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_valid", [None, 2000, 2500])
+@pytest.mark.parametrize("storage,r_slots", [("sq8-sym", 7), ("sq8-sym2", 9)])
+def test_packed_grouped_ragged_columns(cuda, storage, r_slots, n_valid):
+    # 2P + 1 passes, the last ragged (n not a multiple of W), and columns
+    # from n_valid on masked: inside a full group (2000), in the last (2500)
+    group = packed_cuda.passes_per_product(storage, 64 * 256, 1024, 256,
+                                           r_slots)
+    n = (2 * group + 1) * 256 - 100
+    ops = _packed_operands(40, storage, n, 130, 1024, cuda)
+    kw = dict(db_tile=256, r_slots=r_slots, metric="ip", n_valid=n_valid,
+              **ops)
+    got = packed_cuda.segment_packed_kernel(**kw)
+    torch.testing.assert_close(got, packed_cuda.segment_packed_plain(**kw),
+                               rtol=0, atol=0)
+
+
 def test_packed_topk_high_recall_plan(cuda):
     # the planner's R ≥ 32 at k = 6000 of 10000, target 0.999
     w, r = exact_cuda.plan(10000, 6000, 256, exact=False, recall_target=0.999)
@@ -567,6 +630,22 @@ def test_kernel_j_bit_equal_to_plain(cuda, budget, r_slots, two_level, q_n):
     # make ten query tiles; every pass moves each lane tile to another cell
     # of the table
     _check_kernel_j(cuda, budget, r_slots, two_level, q_n)
+
+
+@pytest.mark.parametrize("q_n", [1, 70])
+@pytest.mark.parametrize("case", range(3))
+def test_kernel_j_grouped_tail(cuda, case, q_n):
+    # J (sym) with 1024-lane tiles over P, P + 1 and 2P + 1 passes of its
+    # plan's P passes a product (a short last group, its columns masked),
+    # each pass's box at its own cell, 38 of 128 ids a cell -1
+    group = ivf_cuda.passes_per_product(64, 128, 1024, 4, False)
+    assert group > 1
+    budget = 8 * [group, group + 1, 2 * group + 1][case]
+    assert ivf_cuda.passes_per_product(budget, 128, 1024, 4, False) == group
+    by_group = ivf_cuda.segment_packed_indirect_kernel.launches_by_group
+    before = by_group.get(group, 0)
+    _check_kernel_j(cuda, budget, 4, False, q_n)
+    assert by_group[group] == before + 1
 
 
 @pytest.mark.parametrize(
