@@ -211,6 +211,8 @@ SW_OPS_PER_CELL = 10
 # in other orders (H's p also at other running maxima), an ulp or two apart;
 # allowed: 2^-6 of the largest |value| (4 bf16 ulps there)
 BF16_TOL = 2.0**-6
+# the port's hand-written kernels, by letter (PERF.md §6)
+KERNEL_LETTERS = "ABCDEFGHIJKLM"
 # phase 8: ProtT5-XL over 32 families x (31 train + 1 test) proteins of the
 # length mix, plus four long ones (the last is cut to 3096) for the flash
 # route, in batches of at most 7000 tokens
@@ -1051,6 +1053,77 @@ def check_xlnet_kernel(kernels, seed):
         f" {lengths}]: max_abs_err {err:.3g} (R one row off: {fault_err:.3g}),"
         f" {ms:.3f} ms vs plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms,"
         f" bound {kv['bound_ms']:.3f} ms ({kv['bound_by']})")
+
+
+def check_lstm_kernel(kernels, seed):
+    """Phase 3 for kernel M at the batch shapes of `seqvec.mix` with the
+    most rows (56 proteins of 185-270 residues) and the fewest (10 of
+    881-1614), lengths + 2 for <S> and </S>, SeqVec's widths and bilm-tf's
+    Glorot-uniform LSTM weights: against its plain version, a step loop
+    of torch ops on the card (every position within 2^-6 relative: both
+    round h to bf16 each step, in other summation orders), timed beside
+    its bound (both directions' recurrent products, 4·(512·16384 +
+    4096·512) bf16 operations a position, or the weights, xw and h once).
+    The fp32 step loop the fp32 route runs takes ~0.5 ms a step of both
+    directions (scripts/torch_lstm_probe.py)."""
+    import torch
+
+    from knn_for_homology_tpu_torch.ops import lstm_cuda
+    from knn_for_homology_tpu_torch.ops.lstm import lstmp_bidir_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed + 9)
+    p, cells = 512, 4096
+
+    def glorot(shape, fan):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                * (6.0 / fan) ** 0.5).to(torch.bfloat16)
+
+    w_h = [glorot((p, 4 * cells), 2 * p + 4 * cells) for _ in range(2)]
+    w_p = [glorot((cells, p), cells + p) for _ in range(2)]
+    w_x = glorot((p, 4 * cells), 2 * p + 4 * cells)
+    weights = lstm_cuda.lstmp_weights(w_h, w_p)
+    shapes = {}
+    for key, rows, lo, hi in (("rows_56", 56, 185, 270),
+                              ("rows_10", 10, 881, 1614)):
+        lengths = [round(hi - (hi - lo) * i / (rows - 1)) + 2
+                   for i in range(rows)]
+        steps = max(lengths)
+        x = torch.randn((rows * steps, p), generator=gen, device=dev)
+        xw = torch.stack([(x.bfloat16() @ w_x).view(rows, steps, 4 * cells)
+                          for _ in range(2)])
+        args = (xw, weights, lengths, 3.0, 3.0)
+        plain_args = (xw, w_h, w_p, lengths, 3.0, 3.0)
+        before = lstm_cuda.lstmp_bidir.launches
+        got = lstm_cuda.lstmp_bidir(*args)
+        assert lstm_cuda.lstmp_bidir.launches == before + 1
+        want = lstmp_bidir_plain(*plain_args)
+        err = 0.0
+        for r, n in enumerate(lengths):
+            gap = (got[r, :n].double() - want[r, :n].double()).norm(dim=-1)
+            rel = gap / want[r, :n].double().norm(dim=-1).clamp_min(1e-30)
+            err = max(err, float(rel.max()))
+            assert not got[r, n:].any(), f"M {key}: written past a row"
+        assert err < BF16_TOL, f"M {key}: relative error {err}"
+        ms = cuda_ms(lambda: lstm_cuda.lstmp_bidir(*args), reps=3)
+        plain_ms = cuda_ms(lambda: lstmp_bidir_plain(*plain_args), reps=1,
+                           windows=1)
+        positions = sum(lengths)
+        recurrent = p * 4 * cells + cells * p
+        shapes[key] = kv = dict(
+            name="lstm_bidir", route="cuda",
+            source="knn_for_homology_tpu_torch/csrc/lstm_bidir.cu",
+            replaces=None, max_rel_err=err, ms=ms, us_a_step=1e3 * ms / steps,
+            plain_ms=plain_ms, library_ms=None, library=None,
+            **bound(2 * positions * 2 * recurrent, "bf16",
+                    2 * (2 * recurrent + 2 * positions * (4 * cells + p))),
+        )
+        log(f"phase 3 kernel M lstm_bidir [{rows} rows, {lo + 2}-{hi + 2}"
+            f" steps]: max_rel_err {err:.3g}, {ms:.3f} ms"
+            f" ({kv['us_a_step']:.2f} us a step) vs plain {plain_ms:.3f} ms,"
+            f" bound {kv['bound_ms']:.3f} ms ({kv['bound_by']})")
+    # the entry is the widest batch's; the longest batch's rides along
+    kernels["M"] = dict(shapes["rows_56"], rows_10=shapes["rows_10"])
 
 
 def check_ivf_kernels(db, q_all, kernels, seed):
@@ -2447,6 +2520,79 @@ def run_other_encoders(seed):
     log(f"phase 11 done in {time.perf_counter() - t_phase:.1f} s")
 
 
+def run_seqvec_serving(kernels, seed):
+    """Phase 11 for SeqVec at its published widths in bf16 (the
+    `seqvec.mix` cell's route; the benchmark's weights, bilm-tf's
+    Glorot-uniform LSTMs): `embed_pooled` of phase 11's proteins through
+    the registry in 16384-token batches, kernel M launched once a layer a
+    batch and the step loop never; then 4 of them, the longest among
+    them, against the fp32 route (the step loop) on the card."""
+    import torch
+
+    from knn_for_homology_tpu_torch.models import elmo
+    from knn_for_homology_tpu_torch.models.registry import get_embedder
+    from knn_for_homology_tpu_torch.ops import lstm, lstm_cuda
+    from portbench.drivers.embed_seqvec import seqvec_weights
+    from portbench.lib import harness
+
+    dev = torch.device("cuda")
+    cfg = harness.load_json(harness.BENCH_DIR / "configs" / "seqvec.json")
+    rng = np.random.RandomState(seed + 11)
+    lengths = list(protein_lengths(rng, OTHER_PROTEINS)) + [OTHER_LONG]
+    seqs = [AAS[rng.randint(0, 20, n)].tobytes().decode() for n in lengths]
+    config = dataclasses.replace(elmo.SEQVEC, dtype=torch.bfloat16)
+    params = seqvec_weights(cfg, seed, dev, torch.bfloat16)
+    embedder = get_embedder("SeqVec", config=config, params=params,
+                            max_batch_tokens=16384, device=dev)
+    batches = embedder.batches(seqs)
+    embedder.embed_pooled(seqs[:1])  # cuBLAS warm
+    plain = lstm.lstmp_bidir_plain
+    loop_calls = []
+
+    def counted_plain(*args):
+        loop_calls.append(1)
+        return plain(*args)
+
+    lstm_cuda.lstmp_bidir.launches = lstm_cuda.lstmp_bidir.steps = 0
+    # the step loop, where the fp32 route and the wrapper's CPU route call it
+    elmo.lstmp_bidir_plain = lstm_cuda.lstmp_bidir_plain = counted_plain
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pooled = embedder.embed_pooled(seqs)
+        embed_s = time.perf_counter() - t0
+    finally:
+        elmo.lstmp_bidir_plain = lstm_cuda.lstmp_bidir_plain = plain
+    peak = torch.cuda.max_memory_allocated()
+    launches, steps = lstm_cuda.lstmp_bidir.launches, lstm_cuda.lstmp_bidir.steps
+    assert launches == 2 * len(batches), (
+        f"kernel M: {launches} launches for {len(batches)} batches")
+    assert steps == sum(2 * (max(len(s) for s in b.sequences) + 2)
+                        for b in batches), steps
+    assert not loop_calls, "the bf16 route ran the step loop"
+    assert pooled.shape == (len(seqs), 1024) and np.isfinite(pooled).all()
+    kernels["M"]["launches"] = launches
+    kernels["M"]["launches_by_phase"] = {"11": launches}
+    subset = seqs[:3] + [max(seqs, key=len)]
+    fp32 = get_embedder("SeqVec", params=params, max_batch_tokens=16384,
+                        config=elmo.SEQVEC, device=dev)
+    want = fp32.embed_pooled(subset)
+    got = embedder.embed_pooled(subset)
+    rel = np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
+    assert rel.max() < BF16_TOL, rel
+    residues = sum(lengths)
+    log(f"phase 11 SeqVec bf16 on M: {len(seqs)} proteins, {residues}"
+        f" residues, {len(batches)} batches | embed {embed_s:.3f} s"
+        f" ({residues / embed_s:.0f} residues/s) | peak {peak / 2**30:.2f}"
+        f" GiB | kernel M launches {launches} = 2 x {len(batches)}, {steps}"
+        f" serial steps, the step loop none | pooled vs the fp32 route on"
+        f" {len(subset)} proteins: relative L2 error max {rel.max():.4g}"
+        f" (longest, {len(subset[-1])} aa: {rel[-1]:.4g})")
+    del embedder, fp32
+    torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------- phase 12
 # phase 12 (b): two gloo ranks sharing the card, the same indexes at a
 # smaller depth; the encoder at ProtT5-XL width on SHARD_PROTEINS proteins of
@@ -2469,6 +2615,7 @@ def kernel_counters():
         flash_cuda,
         flat_cuda,
         ivf_cuda,
+        lstm_cuda,
         packed_cuda,
         relattn_cuda,
         short_cuda,
@@ -2482,7 +2629,8 @@ def kernel_counters():
              "I": short_cuda.short_attention_t5,
              "J": ivf_cuda.segment_packed_indirect_kernel,
              "K": slab_cuda.beam_expand,
-             "L": relattn_cuda.relative_attention}
+             "L": relattn_cuda.relative_attention,
+             "M": lstm_cuda.lstmp_bidir}
     return plain, packed_cuda.segment_packed_kernel.launches
 
 
@@ -2498,7 +2646,7 @@ def read_kernel_counts() -> dict:
     plain, packed = kernel_counters()
     out = {key: fn.launches for key, fn in plain.items()}
     out.update(packed)
-    return {key: out[key] for key in "ABCDEFGHIJKL"}
+    return {key: out[key] for key in KERNEL_LETTERS}
 
 
 def recall_at(ids, exact_ids, k=10):
@@ -2713,7 +2861,7 @@ def check_ranks(tag, ranks, refs, wall, card) -> dict:
     assert pooled.shape == refs["pooled"].shape and np.isfinite(pooled).all()
     cos, rel = check_pooled(f"{tag} encode_sharded", pooled, refs["pooled"])
     launches = {key: sum(r["launches"][key] for r in ranks)
-                for key in "ABCDEFGHIJKL"}
+                for key in KERNEL_LETTERS}
     for key in "BJKGH":
         assert launches[key] > 0, f"{tag}: kernel {key} not launched"
     n, world = len(refs["db"]), len(ranks)
@@ -3207,6 +3355,7 @@ def main() -> None:
 
     check_encoder_kernels(kernels, args.seed)
     check_xlnet_kernel(kernels, args.seed)
+    check_lstm_kernel(kernels, args.seed)
     check_ivf_kernels(db, q_all, kernels, args.seed)
     check_graph_kernel_k(train, kernels)
 
@@ -3362,6 +3511,7 @@ def main() -> None:
     # ---- phase 11: the other encoder families
     torch.cuda.empty_cache()
     run_other_encoders(args.seed)
+    run_seqvec_serving(kernels, args.seed)
 
     # ---- phase 12: the sharded path, on phase 4's vectors
     torch.cuda.empty_cache()
@@ -3375,7 +3525,7 @@ def main() -> None:
         run_mmseqs_io(args.seed, tmp, card)
 
     log(card)
-    print(json.dumps({"kernels": [kernels[k] for k in "ABCDEFGHIJKL"]}))
+    print(json.dumps({"kernels": [kernels[k] for k in KERNEL_LETTERS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

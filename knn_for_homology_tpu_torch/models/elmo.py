@@ -14,10 +14,14 @@ token representation duplicated; layers 1/2 = fwd‖bwd projections).
 
 Each protein "word" is a single residue, so the CharCNN is a fixed function
 of the residue: it is evaluated once over the alphabet into a [vocab, 512]
-lookup table. The LSTM step is written out as in the JAX package (torch's
-and cuDNN's LSTMs cannot clip): gates [i, f, g, o], fp32 cell state, masked
-steps carry (h, c). The input product x @ w_x of all steps is one matmul
-before the time loop; the per-step arithmetic is the JAX step's.
+lookup table. Each LSTM layer is one product a direction for x · w_x + b of
+every step, then one call that runs both directions' recurrences (torch's
+and cuDNN's LSTMs cannot clip): ops/lstm.py's step loop, gates [i, f, g,
+o], fp32 cell state, as the JAX step computes it. A bf16 config serves on
+the recurrence kernel M instead (ops/lstm_cuda.py:lstmp_bidir; `encode`
+routes by dtype alone), which on the CPU runs that same step loop. Both
+walk the backward direction over each row's own prefix reversed, so no
+reversal is materialised.
 """
 
 from dataclasses import dataclass
@@ -28,6 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops import lstm_cuda
+from ..ops.lstm import lstmp_bidir_plain
+from ..utils.trace import span
 from .module import TreeEncoder
 
 Params = Dict[str, Any]
@@ -63,11 +70,16 @@ TINY_ELMO = ElmoConfig(
 )
 
 
+# byte -> residue id, unknown bytes -> X
+_BYTE_TO_ID = np.full(256, AA_TO_ID["X"], dtype=np.int32)
+for _aa, _i in AA_TO_ID.items():
+    _BYTE_TO_ID[ord(_aa)] = _i
+
+
 def tokenize(sequence: str) -> np.ndarray:
-    return np.asarray(
-        [AA_TO_ID.get(aa, AA_TO_ID["X"]) for aa in sequence.upper()],
-        dtype=np.int32,
-    )
+    """Residue ids of the upper-cased sequence; any other letter is X."""
+    raw = sequence.upper().encode("ascii", errors="replace")
+    return _BYTE_TO_ID[np.frombuffer(raw, dtype=np.uint8)]
 
 
 # --- CharCNN → residue lookup table ------------------------------------------
@@ -98,68 +110,45 @@ def _char_ids_for_alphabet() -> np.ndarray:
 
 
 def char_cnn_table(params: Params, config: ElmoConfig) -> torch.Tensor:
-    """Evaluate the CharCNN over the whole alphabet → [vocab+2, proj_dim]."""
+    """Evaluate the CharCNN over the whole alphabet → [vocab+2, proj_dim],
+    in fp32 whatever the weights' dtype, rounded to the config's once."""
     emb = params["char_embedding"]
     char_ids = torch.from_numpy(_char_ids_for_alphabet()).to(emb.device).long()
-    x = emb[char_ids].float().transpose(1, 2)  # [V, E, W]
+    x = emb[char_ids].float()  # [V, W, E]
     feats = []
     for conv in params["convs"]:
-        # VALID conv over the word's characters ([width, E, n_out] weights
-        # → torch's [n_out, E, width]), then max over positions
-        y = F.conv1d(x, conv["w"].float().permute(2, 1, 0)) + conv["b"][:, None]
-        feats.append(torch.tanh(y).amax(dim=2))  # [V, n_out]
+        # VALID conv over the word's characters as one fp32 product of the
+        # windows with the [width, E, n_out] weights, then max over
+        # positions (a product, not cuDNN: no TF32, no per-call set-up)
+        w = conv["w"].float()
+        windows = x.unfold(1, w.shape[0], 1)  # [V, positions, E, width]
+        y = torch.einsum("vpew,wen->vpn", windows, w) + conv["b"].float()
+        feats.append(torch.tanh(y).amax(dim=1))  # [V, n_out]
     h = torch.cat(feats, dim=1)  # [V, total_filters]
     for hw in params["highways"]:
-        gate = torch.sigmoid(h @ hw["w_gate"] + hw["b_gate"])
-        lin = torch.relu(h @ hw["w_lin"] + hw["b_lin"])
+        gate = torch.sigmoid(h @ hw["w_gate"].float() + hw["b_gate"].float())
+        lin = torch.relu(h @ hw["w_lin"].float() + hw["b_lin"].float())
         h = gate * lin + (1.0 - gate) * h
-    return (h @ params["proj_w"] + params["proj_b"]).to(config.dtype)
+    return (h @ params["proj_w"].float()
+            + params["proj_b"].float()).to(config.dtype)
 
 
 # --- LSTM with projection (ELMo flavour) --------------------------------------
 
 
-def lstm_step(xw, h, c, keep, cell: Params, config: ElmoConfig):
-    """One LSTMP step of a batch: `xw` = x_t @ w_x [B, 4H]; masked rows
-    (keep False) carry (h, c). → (h, c)."""
-    gates = (xw + h @ cell["w_h"] + cell["b"]).float()
-    i, f, g, o = gates.chunk(4, dim=-1)
-    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    c_new = torch.clamp(c_new, -config.cell_clip, config.cell_clip)
-    h_full = torch.sigmoid(o) * torch.tanh(c_new)
-    h_new = (h_full @ cell["w_proj"].float()).to(config.dtype)
-    h_new = torch.clamp(h_new, -config.proj_clip, config.proj_clip)
-    keep = keep[:, None]
-    return torch.where(keep, h_new, h), torch.where(keep, c_new, c)
+def serves_on_kernel(config: ElmoConfig) -> bool:
+    """The recurrence runs on kernel M's wrapper for a bf16 config."""
+    return config.dtype == torch.bfloat16
 
 
-def _lstm_scan(
-    x: torch.Tensor,  # [B, L, in_dim]
-    mask: torch.Tensor,  # [B, L] bool
-    cell: Params,
-    config: ElmoConfig,
-) -> torch.Tensor:
-    """Unidirectional LSTMP over the sequence → [B, L, proj]."""
-    b, length, _ = x.shape
-    h = torch.zeros((b, config.proj_dim), dtype=config.dtype, device=x.device)
-    c = torch.zeros((b, config.lstm_dim), dtype=torch.float32, device=x.device)
-    xw = x @ cell["w_x"]  # every step's input product at once
-    hs = []
-    for t in range(length):
-        h, c = lstm_step(xw[:, t], h, c, mask[:, t], cell, config)
-        hs.append(h)
-    return torch.stack(hs, dim=1)
-
-
-def _reverse_padded(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Flip only the valid prefix of each right-padded row."""
-    lengths = mask.sum(dim=1)
-    length = x.shape[1]
-    idx = lengths[:, None] - 1 - torch.arange(length, device=x.device)[None]
-    idx = torch.clamp(idx, 0, length - 1)
-    if x.ndim == 3:
-        idx = idx[..., None].expand(-1, -1, x.shape[2])
-    return torch.gather(x, 1, idx)
+def recurrent_weights(params: Params, config: ElmoConfig) -> list:
+    """Each LSTM layer's recurrent weights of both directions, as
+    ops/lstm_cuda.py:lstmp_bidir takes them (packed for the kernel where
+    it runs)."""
+    return [lstm_cuda.lstmp_weights(
+        [params[side][li]["w_h"] for side in ("lstm_fwd", "lstm_bwd")],
+        [params[side][li]["w_proj"] for side in ("lstm_fwd", "lstm_bwd")])
+        for li in range(config.n_lstm_layers)]
 
 
 def encode(
@@ -167,59 +156,104 @@ def encode(
     token_ids: torch.Tensor,  # [B, L] residue ids
     mask: torch.Tensor,  # [B, L] bool
     config: ElmoConfig,
+    lengths=None,  # [B] residues of each row, on the host
+    recurrent=None,  # recurrent_weights(params, config)
 ) -> torch.Tensor:
     """→ [3, B, L, 2*proj_dim] layer activations (CharCNN, LSTM1, LSTM2).
 
     As in AllenNLP's ElmoEmbedder (what the reference's bio_embeddings ran),
     the bi-LSTMs process the sequence wrapped in <S>/</S> boundary words,
-    whose positions are stripped from every output layer."""
+    whose positions are stripped from every output layer. Every family's
+    encode takes (params, ids, mask, config); ElmoEncoder passes the
+    rows' `lengths` and the packed `recurrent` weights as well, which are
+    otherwise read from `mask` (a wait for the card) and packed anew."""
     token_ids, mask = token_ids.long(), mask.bool()
     length = token_ids.shape[1]
     table = char_cnn_table(params, config)  # [V+2, proj]
-    lengths = mask.sum(dim=1)  # [B]
+    row_lengths = mask.sum(dim=1)  # [B], on the device
+    if lengths is None:
+        lengths = row_lengths.tolist()
+    if recurrent is None:
+        recurrent = recurrent_weights(params, config)
+    ext_lengths = [int(n) + 2 for n in lengths]
 
     # extended sequence: <S> x_1 … x_len </S> (EOS at a per-row position)
     pos = torch.arange(length + 2, device=token_ids.device)[None]
     ids_ext = F.pad(token_ids, (1, 1))
     ids_ext = torch.where(pos == 0, BOS_ID, ids_ext)
-    ids_ext = torch.where(pos == lengths[:, None] + 1, EOS_ID, ids_ext)
-    mask_ext = pos <= lengths[:, None] + 1
+    ids_ext = torch.where(pos == row_lengths[:, None] + 1, EOS_ID, ids_ext)
+    mask_ext = pos <= row_lengths[:, None] + 1
     repr_ext = table[ids_ext] * mask_ext[..., None].to(config.dtype)
 
     token_repr = table[token_ids] * mask[..., None].to(config.dtype)
-    layer0 = torch.cat([token_repr, token_repr], dim=-1)
-
-    fwd_in, bwd_in = repr_ext, _reverse_padded(repr_ext, mask_ext)
-    layers = [layer0]
+    layers = [torch.cat([token_repr, token_repr], dim=-1)]
+    b, steps, proj = repr_ext.shape
+    gates = 4 * config.lstm_dim
+    inputs = (repr_ext, repr_ext)
     mask_f = mask[..., None].to(config.dtype)
     for li in range(config.n_lstm_layers):
-        fwd = _lstm_scan(fwd_in, mask_ext, params["lstm_fwd"][li], config)
-        bwd = _lstm_scan(bwd_in, mask_ext, params["lstm_bwd"][li], config)
+        cells = (params["lstm_fwd"][li], params["lstm_bwd"][li])
+        with span("embed.lstm_input"):
+            xw = torch.empty((2, b, steps, gates), dtype=config.dtype,
+                             device=repr_ext.device)
+            for d, cell in enumerate(cells):
+                torch.addmm(cell["b"], inputs[d].reshape(-1, proj),
+                            cell["w_x"], out=xw[d].view(-1, gates))
+        with span("embed.lstm"):
+            if serves_on_kernel(config):
+                out = lstm_cuda.lstmp_bidir(xw, recurrent[li], ext_lengths,
+                                            config.cell_clip,
+                                            config.proj_clip)
+            else:
+                out = lstmp_bidir_plain(xw, recurrent[li].w_h,
+                                        recurrent[li].w_proj, ext_lengths,
+                                        config.cell_clip, config.proj_clip)
+        del xw
         if li > 0:  # ELMo residual connections between LSTM layers
-            fwd = fwd + fwd_in
-            bwd = bwd + bwd_in
-        bwd_aligned = _reverse_padded(bwd, mask_ext)
-        # strip the boundary positions; zero the padding
-        layers.append(torch.cat(
-            [fwd[:, 1 : length + 1] * mask_f,
-             bwd_aligned[:, 1 : length + 1] * mask_f],
-            dim=-1,
-        ))
-        fwd_in, bwd_in = fwd, bwd
+            out = out + below
+        # outputs stay aligned, the backward one too: strip the boundary
+        # positions, zero the padding; the next layer reads them as they are
+        layers.append(out[:, 1:length + 1] * mask_f)
+        below = out
+        inputs = (out[..., :proj], out[..., proj:])
     return torch.stack(layers, dim=0)
 
 
 class ElmoEncoder(TreeEncoder):
-    """forward(token_ids, mask) → [3, B, L, 2*proj_dim] (`encode`)."""
+    """forward(token_ids, mask, lengths=None) → [3, B, L, 2*proj_dim]
+    (`encode`), with the recurrent weights packed once, here."""
 
-    encode_fn = staticmethod(encode)
+    def __init__(self, config, params: Params):
+        super().__init__(config, params)
+        self.recurrent = recurrent_weights(self.params(), config)
+
+    def _apply(self, fn, *args, **kwargs):  # .to() and the like: repack
+        out = super()._apply(fn, *args, **kwargs)
+        self.recurrent = recurrent_weights(self.params(), self.config)
+        return out
+
+    @torch.no_grad()
+    def forward(self, token_ids, mask, lengths=None):
+        return encode(self.params(), token_ids, mask, self.config, lengths,
+                      self.recurrent)
 
 
 def init_params(config: ElmoConfig, seed: int = 0, device="cuda") -> Params:
     """Random init at the JAX init's scales (normal · 0.1, the char
     embedding · 1.0, zero biases), drawn in fp32 on `device` from
     torch.Generator(device).manual_seed(seed). Real SeqVec weights come
-    from models/convert.py."""
+    from models/convert.py.
+
+    At the published widths this scale makes the recurrence chaotic: a
+    4096-cell LSTM whose 16384 x 512 recurrent weights have a spread of
+    0.1 (gate sums of spread ~2 from h alone) amplifies any difference
+    from step to step, so a one-ulp change of the weights, or fp32 against
+    fp64, grows to an O(1) relative gap within ~64 steps (scripts/
+    torch_recurrence_drift.py). Such weights can test a route only over a
+    few steps. The benchmark (portbench/drivers/embed_seqvec.py) draws the
+    LSTMs at TF1's Glorot-uniform default instead, bilm-tf's
+    initialisation, where the same change stays at rounding size over
+    thousands of steps (tests/test_torch_seqvec.py)."""
     device = resolve_device(device)
     gen = torch.Generator(device).manual_seed(seed)
 

@@ -28,6 +28,7 @@ import torch
 
 from ..config import DEFAULT_TOKEN_BATCH, MAX_SEQ_LEN
 from ..device import resolve_device
+from ..ops.lstm_cuda import lstmp_bidir
 from ..ops.short_cuda import short_attention_t5
 from ..utils.trace import span
 from . import bert, cpcprot, elmo, plus_rnn, t5, unirep, xlnet
@@ -90,6 +91,11 @@ class BatchedEmbedder(EmbedderBase):
 
     def run_batch(self, batch: Batch) -> torch.Tensor:
         ids, mask, _ = self._tokens(batch)
+        return self.encode_tokens(batch, ids, mask)
+
+    def encode_tokens(self, batch: Batch, ids: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+        """The encoder on one batch's device tokens."""
         return self.encoder(ids, mask)
 
     def residues(self, output: np.ndarray, row: int, seq: str) -> np.ndarray:
@@ -106,6 +112,11 @@ class BatchedEmbedder(EmbedderBase):
 
     def pool(self, hidden: torch.Tensor, res_mask: torch.Tensor) -> torch.Tensor:
         return mean_pool(hidden, res_mask)
+
+    def launch_counts(self) -> Dict[str, int]:
+        """Running counts of the kernels an encode launches, which the
+        `embed.encode` span records the change of: kernel I's."""
+        return {"short_launches": short_attention_t5.launches}
 
     def embed_per_residue(self, sequences):
         results: List[Optional[np.ndarray]] = [None] * len(sequences)
@@ -129,10 +140,11 @@ class BatchedEmbedder(EmbedderBase):
         ids, mask, res_mask = self._tokens(batch)
         with span("embed.encode") as sp:
             if sp:
-                short = short_attention_t5.launches
-            hidden = self.encoder(ids, mask)
-            if sp:  # kernel I's launches in this encode
-                sp.count(short_launches=short_attention_t5.launches - short)
+                before = self.launch_counts()
+            hidden = self.encode_tokens(batch, ids, mask)
+            if sp:  # the kernels' launches in this encode
+                sp.count(**{k: v - before[k]
+                            for k, v in self.launch_counts().items()})
         with span("embed.pool"):
             return self.pool(hidden, res_mask)
 
@@ -239,10 +251,12 @@ def _on(device, *arrays: np.ndarray) -> List[torch.Tensor]:
 class SeqVecEmbedder(BatchedEmbedder):
     """ELMo (models/elmo.py); per-residue output is [3, L, 1024] as the
     reference's SeqVec (its layers exposed as Sum/CharCNN/LSTM1/LSTM2,
-    reference: cath/embed.py:100-105)."""
+    reference: cath/embed.py:100-105). A bf16 config serves its recurrence
+    on kernel M; pooling (the "SeqVec Sum" vector) is on the device."""
 
     name = "SeqVec"
     dim = 1024
+    device_pools = True
 
     def __init__(
         self,
@@ -269,11 +283,12 @@ class SeqVecEmbedder(BatchedEmbedder):
         return make_batches(sequences, self.max_batch_tokens, max_len=10**9,
                             bucket=32)
 
-    def run_batch(self, batch: Batch) -> torch.Tensor:
-        """[3, rows, padded_len, 2p] layer activations on the device."""
+    def token_arrays(self, batch: Batch):
+        """Every token is a residue: the residue mask is the mask. The
+        encoder's output is [3, rows, padded_len, 2p]."""
         tokens = [elmo.tokenize(s) for s in batch.sequences]
         ids, mask = pad_tokens(tokens, batch.padded_len, 0)
-        return self.encoder(*_on(self.device, ids, mask))
+        return ids, mask, mask
 
     @staticmethod
     def residues(output, row, seq):
@@ -283,6 +298,20 @@ class SeqVecEmbedder(BatchedEmbedder):
     def reduce_per_protein(per_residue: np.ndarray) -> np.ndarray:
         """SeqVec reduce: sum layers, mean residues (bio_embeddings)."""
         return np.asarray(per_residue, dtype=np.float32).sum(0).mean(0)
+
+    def pool(self, hidden, res_mask):
+        """reduce_per_protein on the device: the layers' fp32 sum, then
+        the mean over the residues."""
+        return mean_pool(hidden.float().sum(dim=0), res_mask)
+
+    def encode_tokens(self, batch, ids, mask):
+        """The encoder, given the rows' lengths from the host."""
+        return self.encoder(ids, mask, [len(s) for s in batch.sequences])
+
+    def launch_counts(self) -> Dict[str, int]:
+        """Kernel M's launches and the serial steps they ran."""
+        return {"lstm_launches": lstmp_bidir.launches,
+                "lstm_steps": lstmp_bidir.steps}
 
     def embed_layer_variants(
         self, sequences: Sequence[str]

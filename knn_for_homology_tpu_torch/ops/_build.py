@@ -88,6 +88,10 @@ SIGNATURES = {
     "knn_flash_xlnet": [
         _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P, _I, _I, _I, _P,
     ],
+    # xw, w_h, w_proj, order, lens, y, sums, cells, counters, rows, steps,
+    # cell_clip, proj_clip, stream
+    "knn_lstmp_bidir": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                        _P],
     # l -> blocks of kernel H / I that fit on one SM (the occupancy query)
     "knn_flash_t5_blocks_per_sm": [_I],
     "knn_short_t5_blocks_per_sm": [_I],

@@ -23,6 +23,7 @@ module, so it must import neither jax nor the JAX package.
 """
 
 import contextlib
+import datetime
 import os
 import tempfile
 from typing import Optional, Sequence
@@ -43,16 +44,20 @@ def default_backend(device) -> str:
 
 @contextlib.contextmanager
 def process_group(backend: str, rank: int = 0, world_size: int = 1,
-                  store: Optional[str] = None):
+                  store: Optional[str] = None,
+                  timeout: Optional[datetime.timedelta] = None):
     """This process as `rank` of a `world_size` group on `backend`, met
     through the file `store` (a fresh temporary one when None; a
-    one-rank NCCL group needs a store too). Destroys the group on exit."""
+    one-rank NCCL group needs a store too). `timeout` bounds the meeting
+    and every collective (torch's default when None). Destroys the group
+    on exit."""
     with contextlib.ExitStack() as stack:
         if store is None:
             store = os.path.join(
                 stack.enter_context(tempfile.TemporaryDirectory()), "store")
+        extra = {} if timeout is None else {"timeout": timeout}
         dist.init_process_group(backend, init_method=f"file://{store}",
-                                rank=rank, world_size=world_size)
+                                rank=rank, world_size=world_size, **extra)
         try:
             yield
         finally:

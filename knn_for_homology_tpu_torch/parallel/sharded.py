@@ -46,18 +46,18 @@ from .mesh import DATA_AXIS, all_gather
 
 
 def _local_topk(db_shard, q, k, metric, db_tile, approx, n_valid=None,
-                storage="native"):
+                storage="native", recall_target=0.95):
     """One shard's top-k (the route rule of the module docstring).
     `n_valid` masks this shard's pad rows before selection: a pad row's
     0-vector can outscore real rows (negative cosines; l2 distance to the
-    origin)."""
+    origin). The sq8 storages plan for `recall_target`."""
     if storage != "native":
         if not approx:
             raise ValueError("sq8 storage is approx-only (no certificate)")
         from ..ops.packed_cuda import packed_topk
 
         return packed_topk(db_shard, q, k, metric=metric, storage=storage,
-                           n_valid=n_valid)
+                           n_valid=n_valid, recall_target=recall_target)
     if k > 32 and db_shard.shape[1] % 128 == 0:
         from ..ops.exact_cuda import exact_topk_traced
 
@@ -121,18 +121,42 @@ def db_sharded_topk(
 
 def shard_topk(shard, queries, k: int, s: int, n: int, group,
                metric="cosine", db_tile=8192, approx=False,
-               storage="native") -> Tuple[torch.Tensor, torch.Tensor]:
+               storage="native", recall_target=0.95
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The db-sharded search from one rank's side: `shard` holds rows
     [s·rows, (s+1)·rows) of a database of `n` real rows (the rest pad),
-    and the winner sets merge over `group`. k > n pads FAISS-style."""
-    rows = shard.shape[0]
+    and the winner sets merge over `group`. k > n pads FAISS-style. An
+    sq8 storage's shard may come quantised once (an `SQ8Database`), so
+    that repeated searches skip its quantisation."""
+    from ..ops.packed_cuda import SQ8Database
+
+    rows = shard.n if isinstance(shard, SQ8Database) else shard.shape[0]
     row0 = s * rows
     n_local = min(max(n - row0, 0), rows)
     vals, ids = _local_topk(
         shard, queries, min(k, rows), metric, min(db_tile, rows), approx,
-        n_valid=n_local, storage=storage,
+        n_valid=n_local, storage=storage, recall_target=recall_target,
     )
     return pad_k(*merge_shards(vals, ids, row0, n, k, group), k)
+
+
+def shard_topk_to_host(shard, queries, k: int, s: int, n: int, group,
+                       dst: int = 0, **kw):
+    """shard_topk from one rank's side, with the merged (scores, ids)
+    delivered to the host of shard `dst` as numpy arrays (None on the
+    other ranks): on a CUDA device one copy each into page-locked memory
+    of this call, queued behind the merge, then one wait."""
+    vals, ids = shard_topk(shard, queries, k, s, n, group, **kw)
+    if s != dst:
+        return None
+    if vals.device.type != "cuda":
+        return vals.numpy(), ids.numpy()
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in (vals, ids)]
+    for h, t in zip(host, (vals, ids)):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(vals.device).synchronize()
+    return host[0].numpy(), host[1].numpy()
 
 
 def query_sharded_topk(

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from knn_for_homology_tpu_torch.models import xlnet
+from knn_for_homology_tpu_torch.models import elmo, xlnet
 from knn_for_homology_tpu_torch.models.registry import get_embedder
 from knn_for_homology_tpu_torch.ops import (
     _build,
@@ -27,6 +27,7 @@ from knn_for_homology_tpu_torch.ops import (
     ffn_cuda,
     flat_cuda,
     ivf_cuda,
+    lstm_cuda,
     packed_cuda,
     relattn_cuda,
     slab_cuda,
@@ -34,6 +35,7 @@ from knn_for_homology_tpu_torch.ops import (
 from knn_for_homology_tpu_torch.ops import align as align_ops
 from knn_for_homology_tpu_torch.ops.align import encode_sequence
 from knn_for_homology_tpu_torch.ops.ffn import fused_ffn_plain
+from knn_for_homology_tpu_torch.ops.lstm import lstmp_bidir_plain
 from knn_for_homology_tpu_torch.ops.distance import similarity_block
 from knn_for_homology_tpu_torch.ops.relative_attention import (
     relative_attention_plain,
@@ -1112,3 +1114,123 @@ def test_xlnet_encode_runs_kernel_l_within_a_gib(cuda):
     assert torch.isfinite(hidden.float()).all()
     assert relattn_cuda.relative_attention.launches == before + 30
     assert torch.cuda.max_memory_allocated() - base < 2**30
+
+
+def _lstm_inputs(seed, lengths, device, steps=None):
+    """(xw [2, B, T, 16384] of x ~ N(0, 1), SeqVec-width recurrent weights
+    at TF1's Glorot-uniform default (bilm-tf's LSTMCell), all bf16, packed
+    for the kernel; the lengths as a host list)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    p, cells = 512, 4096
+
+    def glorot(shape, fan):
+        return ((torch.rand(shape, generator=gen, device=device) * 2 - 1)
+                * (6.0 / fan) ** 0.5).to(torch.bfloat16)
+
+    w_x = [glorot((p, 4 * cells), 2 * p + 4 * cells) for _ in range(2)]
+    w_h = [glorot((p, 4 * cells), 2 * p + 4 * cells) for _ in range(2)]
+    w_p = [glorot((cells, p), cells + p) for _ in range(2)]
+    b, t = len(lengths), steps or max(max(lengths), 1)
+    x = torch.randn((b * t, p), generator=gen, device=device).bfloat16()
+    xw = torch.stack([(x @ w).view(b, t, 4 * cells) for w in w_x])
+    return xw.contiguous(), lstm_cuda.lstmp_weights(w_h, w_p), list(lengths)
+
+
+def _widest_position_err(got, want, lengths):
+    """The widest relative L2 error of a valid position's [1024] vector;
+    inf where the kernel wrote past a row's length."""
+    worst = 0.0
+    for r, n in enumerate(lengths):
+        if bool((got[r, n:] != 0).any()):
+            return float("inf")
+        if n:
+            gap = (got[r, :n].double() - want[r, :n].double()).norm(dim=-1)
+            ref = want[r, :n].double().norm(dim=-1).clamp_min(1e-30)
+            worst = max(worst, float((gap / ref).max()))
+    return worst
+
+
+# ragged rows of kernel M: one row; rows ending at step 1 and unsorted;
+# a row of length 0 and steps beyond the longest row; more rows than a
+# 64-row chunk; the widest and the longest batch of seqvec.mix
+@pytest.mark.parametrize("lengths,steps", [
+    ([33], None), ([3, 17, 1, 9, 17], None), ([12, 0, 5], 20),
+    ([40 - (i % 37) for i in range(70)], None),
+    ([272 - round(87 * i / 55) for i in range(56)], None),
+    ([1616 - round(733 * i / 9) for i in range(10)], None),
+], ids=["one row", "unsorted", "zero length", "two chunks", "B56 T272",
+        "B10 T1616"])
+def test_kernel_m_matches_plain(cuda, lengths, steps):
+    """Kernel M against its plain version on the card: every position of
+    both directions within 2^-6 relative (both round h to bf16 each step,
+    but sum in other orders, so a bf16 rounding may differ and carry on;
+    the plain route itself sits ~2e-3 from an fp32 recurrence), nothing
+    written past a row's length, one launch."""
+    xw, weights, lens = _lstm_inputs(41, lengths, cuda, steps)
+    before = (lstm_cuda.lstmp_bidir.launches, lstm_cuda.lstmp_bidir.steps)
+    got = lstm_cuda.lstmp_bidir(xw, weights, lens, 3.0, 3.0)
+    assert lstm_cuda.lstmp_bidir.launches == before[0] + 1
+    assert lstm_cuda.lstmp_bidir.steps == before[1] + max(lengths)
+    want = lstmp_bidir_plain(xw, weights.w_h, weights.w_proj, lens, 3.0, 3.0)
+    assert _widest_position_err(got, want, lengths) < 2.0**-6
+
+
+@pytest.mark.parametrize("fault", ["backward not reversed", "one step late"])
+def test_kernel_m_faults_fail_the_tolerance(cuda, fault):
+    """The comparison above sees the backward direction's walk and the
+    step a position is written at."""
+    lengths = [300, 250, 120]
+    xw, weights, lens = _lstm_inputs(42, lengths, cuda)
+    want = lstmp_bidir_plain(xw, weights.w_h, weights.w_proj, lens, 3.0, 3.0)
+    if fault == "backward not reversed":
+        got = lstm_cuda.lstmp_bidir(xw, weights, lens, 3.0, 3.0)
+        got[..., 512:] = got[..., 512:].flip(1)
+    else:
+        got = lstm_cuda.lstmp_bidir(xw, weights, lens, 3.0, 3.0)
+        got[:, 1:] = got[:, :-1].clone()
+    assert _widest_position_err(got, want, lengths) > 4 * 2.0**-6
+
+
+def test_kernel_m_refuses_what_it_cannot_take(cuda):
+    xw, weights, lens = _lstm_inputs(43, [5, 3], cuda)
+    with pytest.raises(TypeError):
+        lstm_cuda.lstmp_bidir(xw.float(), weights, lens, 3.0, 3.0)
+    narrow = lstm_cuda.lstmp_weights([w[:, :8192] for w in weights.w_h],
+                                     [w[:2048] for w in weights.w_proj])
+    with pytest.raises(ValueError):  # other widths than SeqVec's
+        lstm_cuda.lstmp_bidir(xw[..., :8192].contiguous(), narrow, lens, 3.0,
+                              3.0)
+    with pytest.raises(ValueError):  # a row longer than the steps
+        lstm_cuda.lstmp_bidir(xw, weights, [n + 10 for n in lens], 3.0, 3.0)
+
+
+def test_seqvec_embedder_runs_kernel_m(cuda):
+    """SeqVec at its published widths in bf16 through the registry: two
+    launches of M a batch, the pooled vectors within 2^-6 relative of the
+    same route on M's plain version on the card."""
+    config = dataclasses.replace(elmo.SEQVEC, dtype=torch.bfloat16)
+    params = elmo.init_params(config, seed=4, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(44)
+    for cell in params["lstm_fwd"] + params["lstm_bwd"]:  # bilm-tf's init
+        for name, fan in (("w_x", 17408), ("w_h", 17408), ("w_proj", 4608)):
+            w = cell[name]
+            cell[name] = ((torch.rand(w.shape, generator=gen, device=cuda)
+                           * 2 - 1) * (6.0 / fan) ** 0.5).to(w.dtype)
+    embedder = get_embedder("SeqVec", config=config, params=params,
+                            max_batch_tokens=2048, device=cuda)
+    rng = np.random.RandomState(45)
+    seqs = ["".join(rng.choice(list(AAS[:20]), n))
+            for n in (1, 7, 300, 64, 900, 33)]
+    before = lstm_cuda.lstmp_bidir.launches
+    got = embedder.embed_pooled(seqs)
+    launches = lstm_cuda.lstmp_bidir.launches - before
+    assert launches == 2 * len(embedder.batches(seqs))
+    kernel = lstm_cuda.lstmp_bidir
+    lstm_cuda.lstmp_bidir = lambda xw, w, lens, *clips: lstmp_bidir_plain(
+        xw, w.w_h, w.w_proj, lens, *clips)
+    try:
+        want = embedder.embed_pooled(seqs)
+    finally:
+        lstm_cuda.lstmp_bidir = kernel
+    gap = np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
+    assert gap.max() < 2.0**-6, gap

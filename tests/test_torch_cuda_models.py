@@ -31,6 +31,7 @@ from knn_for_homology_tpu_torch.models import (
     xlnet,
 )
 from knn_for_homology_tpu_torch.models.convert import params_to_torch
+from knn_for_homology_tpu_torch.ops.lstm import lstmp_bidir_plain
 
 pytestmark = pytest.mark.cuda
 FP32_TOL = 1e-5
@@ -98,30 +99,26 @@ def test_cpcprot_card_equals_cpu(cuda, conv_spec):
 
 
 def test_elmo_full_width_step_card_equals_cpu(cuda):
-    """One SeqVec LSTMP step at 512 → 4096 cells → 512, 16 rows (two
-    masked), at the init's scales, from a state inside the clip range."""
+    """The fp32 route's recurrence (ops/lstm.py's step loop) over three
+    steps of both SeqVec directions at 512 → 4096 cells → 512, 16 rows
+    (two of length 0, one of length 1), at the init's scales: card and
+    CPU agree, and nothing is written past a row's length."""
     config = elmo.SEQVEC
     gen = torch.Generator().manual_seed(7)
     h4, p = config.lstm_dim, config.proj_dim
-    cell = {
-        "w_x": torch.randn(p, 4 * h4, generator=gen) * 0.1,
-        "w_h": torch.randn(p, 4 * h4, generator=gen) * 0.1,
-        "b": torch.randn(4 * h4, generator=gen) * 0.1,
-        "w_proj": torch.randn(h4, p, generator=gen) * 0.1,
-    }
-    x = torch.randn(16, p, generator=gen)
-    h = torch.rand(16, p, generator=gen) * 6 - 3
-    c = torch.rand(16, h4, generator=gen) * 6 - 3
-    keep = torch.ones(16, dtype=torch.bool)
-    keep[[3, 11]] = False
-    want = elmo.lstm_step(x @ cell["w_x"], h, c, keep, cell, config)
-    cell_d = params_to_torch(cell, cuda)
-    x_d = x.to(cuda)
-    got = elmo.lstm_step(x_d @ cell_d["w_x"], h.to(cuda), c.to(cuda),
-                         keep.to(cuda), cell_d, config)
-    for g, w in zip(got, want):
-        assert_fp32_close(g, w)
-    assert torch.equal(got[0][3].cpu(), h[3])  # masked rows carry
+    w_h = [torch.randn(p, 4 * h4, generator=gen) * 0.1 for _ in range(2)]
+    w_p = [torch.randn(h4, p, generator=gen) * 0.1 for _ in range(2)]
+    xw = torch.randn(2, 16, 3, 4 * h4, generator=gen)
+    lengths = [3] * 16
+    lengths[3] = lengths[11] = 0
+    lengths[5] = 1
+    want = lstmp_bidir_plain(xw, w_h, w_p, lengths, config.cell_clip,
+                             config.proj_clip)
+    got = lstmp_bidir_plain(xw.to(cuda), [w.to(cuda) for w in w_h],
+                            [w.to(cuda) for w in w_p], lengths,
+                            config.cell_clip, config.proj_clip)
+    assert_fp32_close(got, want)
+    assert not got[3].any() and not got[11].any() and not got[5, 1:].any()
 
 
 def test_mlstm_full_width_step_card_equals_cpu(cuda):
