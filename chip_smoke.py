@@ -1065,7 +1065,8 @@ def check_lstm_kernel(kernels, seed):
     its bound (both directions' recurrent products, 4·(512·16384 +
     4096·512) bf16 operations a position, or the weights, xw and h once).
     The fp32 step loop the fp32 route runs takes ~0.5 ms a step of both
-    directions (scripts/torch_lstm_probe.py)."""
+    directions (scripts/torch_lstm_probe.py). The entry names M's
+    thread-block cluster size."""
     import torch
 
     from knn_for_homology_tpu_torch.ops import lstm_cuda
@@ -1114,13 +1115,15 @@ def check_lstm_kernel(kernels, seed):
             name="lstm_bidir", route="cuda",
             source="knn_for_homology_tpu_torch/csrc/lstm_bidir.cu",
             replaces=None, max_rel_err=err, ms=ms, us_a_step=1e3 * ms / steps,
+            cluster=lstm_cuda.CLUSTER,
             plain_ms=plain_ms, library_ms=None, library=None,
             **bound(2 * positions * 2 * recurrent, "bf16",
                     2 * (2 * recurrent + 2 * positions * (4 * cells + p))),
         )
         log(f"phase 3 kernel M lstm_bidir [{rows} rows, {lo + 2}-{hi + 2}"
             f" steps]: max_rel_err {err:.3g}, {ms:.3f} ms"
-            f" ({kv['us_a_step']:.2f} us a step) vs plain {plain_ms:.3f} ms,"
+            f" ({kv['us_a_step']:.2f} us a step, clusters of"
+            f" {lstm_cuda.CLUSTER}) vs plain {plain_ms:.3f} ms,"
             f" bound {kv['bound_ms']:.3f} ms ({kv['bound_by']})")
     # the entry is the widest batch's; the longest batch's rides along
     kernels["M"] = dict(shapes["rows_56"], rows_10=shapes["rows_10"])

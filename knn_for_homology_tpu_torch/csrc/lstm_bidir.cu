@@ -16,15 +16,27 @@
 // projection sums fp32, the projection's operand bf16.
 //
 // Design. A cooperative grid of 2 x 64 blocks (a direction on each half,
-// one block an SM, all resident); block b of a direction owns cells
+// one block an SM, all resident), launched in thread-block clusters of C =
+// 2 blocks along a direction. C is fixed: an H100 SXM holds 66 clusters of
+// 2, 30 of 4 and 15 of 8 at this kernel's shared memory, where the grid
+// needs 64, 32 and 16, and the runtime refuses a cooperative launch of 4
+// or 8 (cudaErrorCooperativeLaunchTooLarge). The wrapper asks the card
+// once (knn_lstmp_bidir_clusters) and refuses one that holds fewer than
+// 64 clusters of 2. Block b of a
+// direction, rank r = b % C of cluster q = b / C, owns cells
 // [64b, 64b + 64), i.e. 256 gate columns, and its 8 warps 8 cells each, so
 // a warp's four mma n-tiles are the i, f, g and o gates of the same cells
-// and the cell update runs in the accumulators' registers. Per step:
-//   1. the block stages h_{t-1} of the live rows (fp32 sums -> clip ->
-//      bf16) into shared memory, 64 rows a chunk, and writes its 8
-//      columns of it to the output; xw_t and c_{t-1} of the warp's
-//      (row, cell) pairs are loaded first, so their latency runs under
-//      the staging and the products;
+// and the cell update runs in the accumulators' registers; it also owns
+// the projection's columns [r P/C, (r + 1) P/C) of its cluster's cells.
+// Per step, for each chunk of 64 live rows:
+//   1. h_{t-1}: the block reads its P/C columns of the step's fp32 sums
+//      from L2 (four 32-byte items a thread in flight), clips them,
+//      rounds them to bf16 and stores them into the h stage of every
+//      block of its cluster (distributed shared memory,
+//      st.shared::cluster); it writes 8 of those columns to the output.
+//      xw_t and c_{t-1} of the warp's (row, cell) pairs are loaded
+//      before, so their latency runs under the staging and the products.
+//      A cluster barrier follows;
 //   2. gates on mma.sync m16n8k16 (bf16 in, fp32 sums). Holding the
 //      recurrent weights: both directions' W_h and W_proj are 42 MB in
 //      bf16, against ~29 MB of shared memory and 32 MB of registers on
@@ -33,17 +45,32 @@
 //      registers (64 a thread) for the whole launch; the other 14 (14 MB
 //      a step for both directions) stream from L2. The wrapper packs
 //      W_h and W_proj in the order the lanes read them;
-//   3. the cell update; bf16 h_full of the chunk into shared memory;
-//   4. the block's share of the projection, h_full [rows, 64] . W_proj
-//      [64, 512], added into an fp32 [rows, 512] sum in global memory
-//      with 16-byte vector atomics (lanes pair up to hold 4 columns);
+//   3. the cell update; m = bf16(sig(o) tanh(c)) of the chunk into a local
+//      stage, then (after a cluster barrier that frees the h stages, its
+//      arrival made before the cell update) into columns [64r, 64r + 64)
+//      of every cluster block's h stage: after a second cluster barrier
+//      each block holds the cluster's [rows, 64 C] cells;
+//   4. the block's projection of them onto its own P/C columns, [rows,
+//      64 C] . W_proj [64 C, P/C] (the same 64 KB and FLOPs as one block's
+//      64 cells onto all P), added into an fp32 [rows, P] sum in global
+//      memory with 16-byte vector atomics: 64/C adds a sum, not 64;
 //   5. a barrier of the direction's 64 blocks (an arrival counter).
 // The sums rotate through three buffers: step t adds into t % 3, reads
-// (t - 1) % 3, and zeroes (t + 1) % 3, so one barrier a step suffices. The
-// fp32 sums are added in no fixed order: results may differ from run to
-// run in the last bits of a sum before its bf16 rounding. Measured on an
-// H100 (PERF.md): a step of both directions takes ~14 us at 10 rows and
-// ~38 us at 56; the atomics are ~6 us of the latter.
+// (t - 1) % 3, and zeroes (t + 1) % 3, so one direction barrier a step
+// suffices. The fp32 sums are added in no fixed order: results may differ
+// from run to run in the last bits of a sum before its bf16 rounding.
+//
+// Shared memory (223,232 bytes of the 232,448 a block may take): W_proj
+// slice 64 KB, W_h k-tiles 80 KB, the h stage [64 rows, 520] bf16 (h_{t-1}
+// in its 512 columns for the gates; then the cluster's cells in its first
+// 64 C columns for the projection), the local cell-output stage [64, 72]
+// bf16.
+//
+// Measured on an H100 SXM (PERF.md §5 and §6 row 15): at C = 2 a step of
+// both directions takes ~29 us at 56 rows and ~13 at 10 (before the
+// clusters 37.7 and 13.8); at 56 rows the staging went 11.0 -> 7.8 us
+// (~3-4 of it the wait for xw_t's loads), the projection with its atomics
+// 8.6 -> 3.9, and the cells' all-gather takes 1.1.
 //
 // Ragged rows: the wrapper hands rows sorted by length, longest first
 // (`order` maps a sorted row to the batch's row), so the live rows of step
@@ -56,7 +83,7 @@
 // What bounds it (H100 SXM): the products, 4 (P.4H + H.P) flop a row, step
 // and direction, at the bf16 peak; the bytes, the recurrent weights once a
 // launch plus xw and h once. Its reach: P 512, H 4096, any rows (in chunks
-// of 64) and steps.
+// of 64, the cluster exchange a chunk) and steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,13 +100,19 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int CW = CB / WARPS;    // cells a warp
 constexpr int KT = P / 16;        // k-tiles of the gates product
-constexpr int PKT = CB / 16;      // k-tiles of the projection
-constexpr int PNT = P / 8 / WARPS;  // n-tiles of the projection a warp
 constexpr int MC = 64;            // rows a chunk
 constexpr int MT = MC / 16;       // m-tiles a chunk
 constexpr int HS = P + 8;         // h stage row stride (bf16)
-constexpr int FS = CB + 8;        // h_full stage row stride (bf16)
-constexpr int COLS = P / NB;      // output columns a block writes
+constexpr int FS = CB + 8;        // cell-output stage row stride (bf16)
+constexpr int COLS = 8;           // output columns a block writes a row
+constexpr int C = 2;              // blocks a cluster
+constexpr int NCOL = P / C;       // projection columns a block owns
+constexpr int ITEMS_ROW = NCOL / 8;  // 16-byte bf16 items of them a row
+constexpr int BATCH = 4;          // staging items a thread has in flight
+constexpr int PKT = C * CB / 16;  // k-tiles of the projection
+constexpr int PNW = NCOL / 8 / WARPS;  // its n-tiles a warp
+static_assert(ITEMS_ROW == NB / C, "a cluster writes an item a row");
+static_assert(PNW == 4, "a warp's projection n-tiles");
 // where a warp's W_h k-tiles live for the whole launch: the first KT_REG in
 // registers, the next KT_SMEM in shared memory, the rest read from L2
 constexpr int KT_REG = 8;
@@ -120,6 +153,36 @@ __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
                : "l"(p)
                : "memory");
   return v;
+}
+
+// the cluster's barrier, every thread of its blocks: arrive (a release by
+// default: this thread's accesses before it are seen by every thread after
+// the wait) and wait (an acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// 16 bytes into the same place of the shared memory of block `rank` of the
+// cluster
+__device__ __forceinline__ void store_cluster(const void* local,
+                                              unsigned rank, uint4 v) {
+  uint32_t addr = (uint32_t)__cvta_generic_to_shared(local), remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   remote),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -168,7 +231,7 @@ lstmp_bidir_kernel(const __nv_bfloat16* __restrict__ xw,
                    unsigned* counters, int rows, int steps, float cell_clip,
                    float proj_clip) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint4* wproj_s = reinterpret_cast<uint4*>(smem);
+  const uint2* wproj_s = reinterpret_cast<const uint2*>(smem);
   uint4* wh_s = reinterpret_cast<uint4*>(smem + WPROJ_BYTES);
   __nv_bfloat16* h_s =
       reinterpret_cast<__nv_bfloat16*>(smem + WPROJ_BYTES + WH_BYTES);
@@ -176,16 +239,20 @@ lstmp_bidir_kernel(const __nv_bfloat16* __restrict__ xw,
       smem + WPROJ_BYTES + WH_BYTES + HSTAGE_BYTES);
 
   const int blk = blockIdx.x, dir = blockIdx.y;
+  const int rank = blk % C, cluster = blk / C;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const size_t sum_plane = (size_t)rows * P;  // one direction of a buffer
   unsigned* counter = counters + dir;
+  const int own = rank * NCOL;               // the block's first column
+  const int out_col = own + cluster * COLS;  // the columns it writes
 
   // this block's W_proj fragments, for the whole launch
   {
     const uint4* src = w_proj + (size_t)(dir * NB + blk) * (WPROJ_BYTES / 16);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
     for (int i = tid; i < (int)(WPROJ_BYTES / 16); i += THREADS)
-      wproj_s[i] = src[i];
+      dst[i] = src[i];
   }
   // this warp's W_h fragments: [kt][lane][4 gates x 2 registers]
   const uint4* wh = w_h + ((size_t)(dir * NB + blk) * WARPS + warp) * KT * 64 +
@@ -206,12 +273,14 @@ lstmp_bidir_kernel(const __nv_bfloat16* __restrict__ xw,
   const int warp_cell = warp * CW + tig * 2;  // + e: the block's cell
   const int cell0 = blk * CB + warp_cell;     // the direction's cell
   const __nv_bfloat16* xw_dir = xw + (size_t)dir * rows * steps * G;
+  // every block of the cluster runs before any writes into its memory
+  cluster_sync();
 
   // h of step `at` (clipped, bf16) of rows [r0, r1): this block's
   // columns, from the step's sums to the output
   auto write_rows = [&](const float* sums_at, int r0, int r1, int at) {
     for (int i = tid; i < (r1 - r0) * COLS; i += THREADS) {
-      const int r = r0 + i / COLS, k = blk * COLS + i % COLS;
+      const int r = r0 + i / COLS, k = out_col + i % COLS;
       const int pos = dir == 0 ? at : __ldg(lens + r) - 1 - at;
       const float v = clip(__ldcg(sums_at + (size_t)r * P + k), proj_clip);
       y[((size_t)__ldg(order + r) * steps + pos) * (2 * P) + dir * P + k] =
@@ -232,6 +301,15 @@ lstmp_bidir_kernel(const __nv_bfloat16* __restrict__ xw,
     // their h_{t-1} is staged
     if (t > 0) write_rows(prev, live, was_live, t - 1);
     if (live == 0) break;  // the same step in every block
+    // zero this block's columns of the buffer step t + 1 adds into (read
+    // as step t - 1's h, before the last direction barrier), here, where
+    // the stores queue behind none of this step's atomics (after them, the
+    // zeroing took 0.6-1 us a step)
+    for (int i = tid; i < rows * (COLS / 4); i += THREADS) {
+      const int r = i / (COLS / 4), k = out_col + (i % (COLS / 4)) * 4;
+      __stcg(reinterpret_cast<float4*>(next + (size_t)r * P + k),
+             make_float4(0.f, 0.f, 0.f, 0.f));
+    }
 
     for (int c0 = 0; c0 < live; c0 += MC) {
       const int chunk = min(MC, live - c0);
@@ -258,31 +336,57 @@ lstmp_bidir_kernel(const __nv_bfloat16* __restrict__ xw,
           }
         }
       }
-      // 1. h_{t-1} of the chunk's rows, clipped and rounded to bf16 (rows
-      // past the chunk zero), and this block's columns of it to the output
-      for (int i = tid; i < mts * 16 * (P / 4); i += THREADS) {
-        const int r = i / (P / 4), k = (i % (P / 4)) * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < chunk)
-          v = __ldcg(reinterpret_cast<const float4*>(prev + (size_t)(c0 + r) *
-                                                                P + k));
-        v.x = clip(v.x, proj_clip);
-        v.y = clip(v.y, proj_clip);
-        v.z = clip(v.z, proj_clip);
-        v.w = clip(v.w, proj_clip);
-        uint2 packed;
-        packed.x = pack_bf16(v.x, v.y);
-        packed.y = pack_bf16(v.z, v.w);
-        *reinterpret_cast<uint2*>(h_s + r * HS + k) = packed;
-        if (t > 0 && r < chunk && k / COLS == blk) {
-          const int row = c0 + r;
-          const int pos = dir == 0 ? t - 1 : __ldg(lens + row) - t;
-          *reinterpret_cast<uint2*>(
-              y + ((size_t)__ldg(order + row) * steps + pos) * (2 * P) +
-              dir * P + k) = packed;
+      // the cluster's h stages are free: its blocks' projections of the
+      // previous chunk are done (the direction barrier did it before)
+      if (c0 > 0) cluster_sync();
+      // 1. the block's columns of h_{t-1} for the chunk's rows (rows past
+      // the chunk zero), clipped and rounded to bf16, into every cluster
+      // block's h stage; 8 of them to the output. A thread's loads of a
+      // batch are all in flight before its first store.
+      const int items = mts * 16 * ITEMS_ROW;
+      for (int i0 = tid; i0 < items; i0 += BATCH * THREADS) {
+        float4 v[BATCH][2];
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+          const int i = i0 + b * THREADS;
+          const int r = i / ITEMS_ROW, k = own + (i % ITEMS_ROW) * 8;
+          v[b][0] = v[b][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (i < items && r < chunk) {
+            const float4* src = reinterpret_cast<const float4*>(
+                prev + (size_t)(c0 + r) * P + k);
+            v[b][0] = __ldcg(src);
+            v[b][1] = __ldcg(src + 1);
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+          const int i = i0 + b * THREADS;
+          const int r = i / ITEMS_ROW, k = own + (i % ITEMS_ROW) * 8;
+          if (i < items) {
+            uint4 packed;
+            packed.x = pack_bf16(clip(v[b][0].x, proj_clip),
+                                 clip(v[b][0].y, proj_clip));
+            packed.y = pack_bf16(clip(v[b][0].z, proj_clip),
+                                 clip(v[b][0].w, proj_clip));
+            packed.z = pack_bf16(clip(v[b][1].x, proj_clip),
+                                 clip(v[b][1].y, proj_clip));
+            packed.w = pack_bf16(clip(v[b][1].z, proj_clip),
+                                 clip(v[b][1].w, proj_clip));
+            const __nv_bfloat16* at = h_s + r * HS + k;
+#pragma unroll
+            for (int peer = 0; peer < C; ++peer)
+              store_cluster(at, peer, packed);
+            if (t > 0 && r < chunk && k == out_col) {
+              const int row = c0 + r;
+              const int pos = dir == 0 ? t - 1 : __ldg(lens + row) - t;
+              *reinterpret_cast<uint4*>(
+                  y + ((size_t)__ldg(order + row) * steps + pos) * (2 * P) +
+                  dir * P + k) = packed;
+            }
+          }
         }
       }
-      __syncthreads();
+      cluster_sync();
 
       // 2. the warp's gates: [rows of the chunk] x [i, f, g, o of 8 cells]
       float acc[MT][4][4];
@@ -318,6 +422,8 @@ lstmp_bidir_kernel(const __nv_bfloat16* __restrict__ xw,
           }
         }
       }
+      // this block's h stage is read: its cluster may fill it with cells
+      cluster_arrive();
 
       // 3. the cell update of the warp's (row, cell) pairs
 #pragma unroll
@@ -357,36 +463,46 @@ lstmp_bidir_kernel(const __nv_bfloat16* __restrict__ xw,
         }
       }
       __syncthreads();
+      cluster_wait();
+      // the chunk's cells of this block into columns [64 rank, 64 rank +
+      // 64) of every cluster block's h stage
+      for (int i = tid; i < mts * 16 * (CB / 8); i += THREADS) {
+        const int r = i / (CB / 8), k = (i % (CB / 8)) * 8;
+        const uint4 v = *reinterpret_cast<const uint4*>(f_s + r * FS + k);
+        const __nv_bfloat16* at = h_s + r * HS + rank * CB + k;
+#pragma unroll
+        for (int peer = 0; peer < C; ++peer) store_cluster(at, peer, v);
+      }
+      cluster_sync();
 
-      // 4. the block's share of h_t: h_full [chunk, 64] . W_proj slice,
-      // added into the step's sums
+      // 4. the cluster's cells [chunk, 64 C] . this block's W_proj slice,
+      // added into its columns of the step's sums
 #pragma unroll 1
       for (int m = 0; m < mts; ++m) {
-        float pacc[PNT][4];
+        float pacc[PNW][4];
 #pragma unroll
-        for (int j = 0; j < PNT; ++j)
+        for (int j = 0; j < PNW; ++j)
 #pragma unroll
           for (int q = 0; q < 4; ++q) pacc[j][q] = 0.f;
 #pragma unroll
         for (int kt = 0; kt < PKT; ++kt) {
           uint32_t a[4];
-          ldmatrix_x4(a, f_s + (m * 16 + (lane & 15)) * FS + kt * 16 +
+          ldmatrix_x4(a, h_s + (m * 16 + (lane & 15)) * HS + kt * 16 +
                              (lane >> 4) * 8);
-          const uint4* wp = wproj_s + ((warp * PKT + kt) * 32 + lane) * 4;
+          const uint2* wp = wproj_s + (warp * PKT + kt) * PNW * 32 + lane;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const uint4 w = wp[q];
-            mma_bf16(pacc[2 * q], a[0], a[1], a[2], a[3], w.x, w.y);
-            mma_bf16(pacc[2 * q + 1], a[0], a[1], a[2], a[3], w.z, w.w);
+          for (int j = 0; j < PNW; ++j) {
+            const uint2 w = wp[j * 32];
+            mma_bf16(pacc[j], a[0], a[1], a[2], a[3], w.x, w.y);
           }
         }
         // lanes 2i and 2i + 1 trade halves: the even one adds 4 columns of
         // row g, the odd one 4 columns of row g + 8, one vector atomic each
         const bool odd = tig & 1;
         const int r = c0 + m * 16 + g + (odd ? 8 : 0);
-        float* dst = cur + (size_t)r * P + warp * PNT * 8 + (tig & 2) * 2;
+        float* dst = cur + (size_t)r * P + own + warp * PNW * 8 + (tig & 2) * 2;
 #pragma unroll
-        for (int j = 0; j < PNT; ++j) {
+        for (int j = 0; j < PNW; ++j) {
           const float s0 = odd ? pacc[j][0] : pacc[j][2];
           const float s1 = odd ? pacc[j][1] : pacc[j][3];
           const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
@@ -396,24 +512,55 @@ lstmp_bidir_kernel(const __nv_bfloat16* __restrict__ xw,
           if (r < live) atomicAdd(reinterpret_cast<float4*>(dst + j * 8), v);
         }
       }
-      __syncthreads();  // h_s and f_s are the next chunk's
     }
 
-    // zero this block's columns of the buffer step t + 1 adds into
-    for (int i = tid; i < rows * (COLS / 4); i += THREADS) {
-      const int r = i / (COLS / 4), k = blk * COLS + (i % (COLS / 4)) * 4;
-      __stcg(reinterpret_cast<float4*>(next + (size_t)r * P + k),
-             make_float4(0.f, 0.f, 0.f, 0.f));
-    }
     direction_barrier(counter, (unsigned)(t + 1) * NB);
   }
   // the last step's h of the rows still live at its end
   if (t == steps)
     write_rows(sums + (size_t)((t + 2) % 3) * 2 * sum_plane + dir * sum_plane,
                0, live, t - 1);
+  // no block leaves while its cluster may still write into its memory
+  cluster_sync();
+}
+
+cudaLaunchConfig_t launch_config(cudaStream_t stream,
+                                 cudaLaunchAttribute (&attrs)[2]) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(NB, 2);
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = SMEM_BYTES;
+  config.stream = stream;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = C;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  // all 2 x 64 blocks resident, or the launch is refused: the direction
+  // barrier needs every block of a direction running
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  config.attrs = attrs;
+  config.numAttrs = 2;
+  return config;
 }
 
 }  // namespace knn_lstm
+
+// clusters of C blocks of kernel M the card holds at once at its shared
+// memory (one block an SM), or -1
+extern "C" int knn_lstmp_bidir_clusters() {
+  using namespace knn_lstm;
+  cudaError_t err = cudaFuncSetAttribute(
+      lstmp_bidir_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return -1;
+  cudaLaunchAttribute attrs[2];
+  cudaLaunchConfig_t config = launch_config(0, attrs);
+  config.numAttrs = 1;  // the occupancy query takes no cooperative flag
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, lstmp_bidir_kernel, &config);
+  return err == cudaSuccess ? clusters : -1;
+}
 
 // xw [2, rows, steps, 4H] bf16 (x . W_x + b of each direction, positions
 // as the batch holds them); w_h, w_proj: the wrapper's fragment packs;
@@ -433,21 +580,15 @@ extern "C" int knn_lstmp_bidir(const void* xw, const void* w_h,
       lstmp_bidir_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const __nv_bfloat16* xw_p = static_cast<const __nv_bfloat16*>(xw);
-  const uint4* wh_p = static_cast<const uint4*>(w_h);
-  const uint4* wp_p = static_cast<const uint4*>(w_proj);
-  const int* order_p = static_cast<const int*>(order);
-  const int* lens_p = static_cast<const int*>(lens);
-  __nv_bfloat16* y_p = static_cast<__nv_bfloat16*>(y);
-  float* sums_p = static_cast<float*>(sums);
-  float* cells_p = static_cast<float*>(cells);
-  unsigned* counters_p = static_cast<unsigned*>(counters);
-  void* args[] = {&xw_p,   &wh_p,    &wp_p,       &order_p,
-                  &lens_p, &y_p,     &sums_p,     &cells_p,
-                  &counters_p, &rows, &steps, &cell_clip, &proj_clip};
-  err = cudaLaunchCooperativeKernel((const void*)lstmp_bidir_kernel,
-                                    dim3(NB, 2), dim3(THREADS), args,
-                                    SMEM_BYTES, stream);
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t config = launch_config(stream, attrs);
+  err = cudaLaunchKernelEx(
+      &config, lstmp_bidir_kernel, static_cast<const __nv_bfloat16*>(xw),
+      static_cast<const uint4*>(w_h), static_cast<const uint4*>(w_proj),
+      static_cast<const int*>(order), static_cast<const int*>(lens),
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(sums),
+      static_cast<float*>(cells), static_cast<unsigned*>(counters), rows,
+      steps, cell_clip, proj_clip);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

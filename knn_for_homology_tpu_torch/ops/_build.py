@@ -35,8 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argument types (each returns cudaError_t, but
-# the *_blocks_per_sm, *_warps and *_group queries, which return a count
-# or -1)
+# the *_blocks_per_sm, *_warps, *_group and *_clusters queries, which
+# return a count or -1)
 SIGNATURES = {
     # q, db, norms, vals, ids, part_vals, part_ids, q_n, n, d, k, splits,
     # l2, stream
@@ -95,6 +95,8 @@ SIGNATURES = {
     # l -> blocks of kernel H / I that fit on one SM (the occupancy query)
     "knn_flash_t5_blocks_per_sm": [_I],
     "knn_short_t5_blocks_per_sm": [_I],
+    # clusters of kernel M the card holds at once (the occupancy query)
+    "knn_lstmp_bidir_clusters": [],
 }
 
 _LIB = {}  # digest -> loaded CDLL (one per process)

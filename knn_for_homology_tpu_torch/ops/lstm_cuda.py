@@ -11,8 +11,15 @@ them in the order the kernel's lanes read them too. The lengths come from
 the host: the wrapper sorts the rows longest first there (a [B] index the
 kernel reads through; no row is moved) and sends index and lengths up
 without waiting for the card.
+
+The kernel runs in thread-block clusters of CLUSTER blocks, which
+exchange each step's h among themselves in shared memory; W_proj is packed
+for that. A card that cannot hold the whole grid in such clusters at once
+is refused when the weights are packed (`check_clusters`, asked once a
+device).
 """
 
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +32,7 @@ KERNEL_PROJ = 512  # the widths the kernel is built for
 KERNEL_CELLS = 4096
 BLOCKS = 64  # a direction's blocks (csrc/lstm_bidir.cu: NB)
 WARPS = 8
+CLUSTER = 2  # blocks a thread-block cluster (csrc/lstm_bidir.cu: C)
 
 
 class LSTMPWeights(NamedTuple):
@@ -35,6 +43,23 @@ class LSTMPWeights(NamedTuple):
     w_h: Tuple[torch.Tensor, torch.Tensor]
     w_proj: Tuple[torch.Tensor, torch.Tensor]
     packed: Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def check_clusters(held: int) -> None:
+    """Refuse a card that holds fewer than the grid's 2·BLOCKS / CLUSTER
+    clusters at once: `held` is cudaOccupancyMaxActiveClusters at the
+    kernel's shared memory, one block an SM (-1 where the query failed).
+    The launch would be refused too, or its barrier trap."""
+    need = 2 * BLOCKS // CLUSTER
+    if held < need:
+        raise RuntimeError(f"kernel M: the card holds {held} clusters of "
+                           f"{CLUSTER} blocks at once; the grid needs {need}")
+
+
+@functools.lru_cache(maxsize=None)
+def _card_holds_the_grid(index: int) -> None:
+    with torch.cuda.device(index):
+        check_clusters(_build.library().knn_lstmp_bidir_clusters())
 
 
 def lstmp_weights(w_h: Sequence[torch.Tensor],
@@ -54,6 +79,9 @@ def lstmp_weights(w_h: Sequence[torch.Tensor],
     packed = None
     if (w_h[0].is_cuda and w_h[0].dtype == torch.bfloat16
             and (proj, gates // 4) == (KERNEL_PROJ, KERNEL_CELLS)):
+        device = w_h[0].device
+        _card_holds_the_grid(torch.cuda.current_device()
+                             if device.index is None else device.index)
         packed = (torch.stack([pack_w_h(w) for w in w_h]),
                   torch.stack([pack_w_proj(w) for w in w_proj]))
     return LSTMPWeights(tuple(w_h), tuple(w_proj), packed)
@@ -100,13 +128,17 @@ def pack_w_h(w: torch.Tensor) -> torch.Tensor:
 
 def pack_w_proj(w: torch.Tensor) -> torch.Tensor:
     """W_proj [H, P] in the kernel's fragment order [block, warp, k-tile,
-    lane, n-tile, register, half]: lane (g, t) of warp w in block b holds
-    W_proj[64·b + 16·kt + 8·r + 2·t + half, 64·w + 8·j + g]."""
+    n-tile, lane, register, half], C = CLUSTER: block b = C·q + c projects
+    its cluster's 64·C cells onto columns [c·P/C, (c + 1)·P/C), its warp w
+    onto n = P / (8·C·WARPS) n-tiles of them, so lane (g, t) holds
+    W_proj[64·C·q + 16·kt + 8·r + 2·t + half, (P/C)·c + 8·(n·w + j) + g]."""
     cells, proj = w.shape
-    per = cells // BLOCKS
-    v = w.reshape(BLOCKS, per // 16, 2, 4, 2, WARPS, proj // (8 * WARPS), 8)
-    # dims: block, kt, r, t, half, warp, j, g
-    return v.permute(0, 5, 1, 7, 3, 6, 2, 4).contiguous()
+    c = CLUSTER
+    n = proj // (8 * c * WARPS)
+    v = w.reshape(BLOCKS // c, 4 * c, 2, 4, 2, c, WARPS, n, 8)
+    # dims: q, kt, r, t, half, c, warp, j, g
+    return v.permute(0, 5, 6, 1, 7, 8, 3, 2, 4).reshape(
+        BLOCKS, WARPS, 4 * c, n, 32, 2, 2).contiguous()
 
 
 def lstmp_bidir(

@@ -1175,6 +1175,36 @@ def test_kernel_m_matches_plain(cuda, lengths, steps):
     assert _widest_position_err(got, want, lengths) < 2.0**-6
 
 
+def _ragged_lengths(rows):
+    """Lengths 4-48 in no order, a zero-length row among them (but for a
+    single row)."""
+    lengths = [48 - (7 * i) % 45 for i in range(rows)]
+    if rows > 1:
+        lengths[rows // 2] = 0
+    return lengths
+
+
+# rows: one; one m-tile; a ragged second m-tile; the cell's widest batch;
+# a full chunk; two chunks
+@pytest.mark.parametrize("rows", [1, 10, 17, 56, 64, 70])
+def test_kernel_m_ragged_rows(cuda, rows):
+    """Kernel M's cluster exchange over ragged m-tiles and chunks: every
+    position within 2^-6 of the plain version, as
+    test_kernel_m_matches_plain, nothing written past a row's length."""
+    lengths = _ragged_lengths(rows)
+    xw, weights, lens = _lstm_inputs(46 + rows, lengths, cuda)
+    got = lstm_cuda.lstmp_bidir(xw, weights, lens, 3.0, 3.0)
+    want = lstmp_bidir_plain(xw, weights.w_h, weights.w_proj, lens, 3.0, 3.0)
+    assert _widest_position_err(got, want, lengths) < 2.0**-6
+
+
+def test_kernel_m_card_holds_its_clusters(cuda):
+    """The card holds M's whole grid in clusters of CLUSTER blocks at once
+    (the occupancy query the wrapper refuses a card by)."""
+    held = _build.library().knn_lstmp_bidir_clusters()
+    assert held >= 2 * lstm_cuda.BLOCKS // lstm_cuda.CLUSTER, held
+
+
 @pytest.mark.parametrize("fault", ["backward not reversed", "one step late"])
 def test_kernel_m_faults_fail_the_tolerance(cuda, fault):
     """The comparison above sees the backward direction's walk and the

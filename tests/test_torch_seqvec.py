@@ -206,6 +206,58 @@ def test_kernel_wrapper_refuses_mismatched_shapes():
         lstm_cuda.lstmp_bidir(xw[..., :32], weights, [5, 1, 2], 3.0, 3.0)
 
 
+# clusters of kernel M the card holds at once: the whole grid (2 x 64
+# blocks) in clusters of 2 needs 64 of them; 66 is an H100 SXM's count at
+# M's shared memory, -1 a failed query
+@pytest.mark.parametrize("held", [64, 66, 132])
+def test_cluster_check_takes_a_card_that_holds_the_grid(held):
+    lstm_cuda.check_clusters(held)
+
+
+@pytest.mark.parametrize("held", [63, 30, 0, -1])
+def test_cluster_check_refuses_a_card_too_small(held):
+    with pytest.raises(RuntimeError, match="clusters"):
+        lstm_cuda.check_clusters(held)
+
+
+def test_pack_w_proj_follows_its_map():
+    """pack_w_proj against its docstring: lane (g, t) of warp w in block
+    b = C·q + c, at k-tile kt, n-tile j, register r and half, holds
+    W_proj[64·C·q + 16·kt + 8·r + 2·t + half,
+           (P/C)·c + 8·(n·w + j) + g]
+    (n = P / (8·C·8) n-tiles a warp); every element once."""
+    cells, proj, c = 4096, 512, lstm_cuda.CLUSTER
+    w = torch.arange(cells * proj, dtype=torch.int64).view(cells, proj)
+    got = lstm_cuda.pack_w_proj(w)
+    n = proj // (8 * c * 8)
+    assert got.shape == (64, 8, 4 * c, n, 32, 2, 2)
+    b, wp, kt, j, lane, r, half = np.ix_(
+        *(np.arange(d) for d in got.shape))
+    q, rank, g, t = b // c, b % c, lane // 4, lane % 4
+    cell = 64 * c * q + 16 * kt + 8 * r + 2 * t + half
+    col = (proj // c) * rank + 8 * (n * wp + j) + g
+    np.testing.assert_array_equal(got.numpy(), cell * proj + col)
+    assert torch.equal(got.flatten().sort().values, w.flatten())
+
+
+def test_pack_w_h_follows_its_map():
+    """pack_w_h against its docstring: lane (g, t) of warp w in block b,
+    at k-tile kt, gate, register r and half, holds
+    W_h[16·kt + 8·r + 2·t + half, gate·H + 64·b + 8·w + g]; every
+    element once."""
+    proj, cells = 512, 4096
+    w = torch.arange(proj * 4 * cells, dtype=torch.int64).view(proj,
+                                                               4 * cells)
+    got = lstm_cuda.pack_w_h(w).reshape(64, 8, 32, 32, 4, 2, 2)
+    b, wp, kt, lane, gate, r, half = np.ix_(
+        *(np.arange(d) for d in got.shape))
+    g, t = lane // 4, lane % 4
+    row = 16 * kt + 8 * r + 2 * t + half
+    col = gate * cells + 64 * b + 8 * wp + g
+    np.testing.assert_array_equal(got.numpy(), row * 4 * cells + col)
+    assert torch.equal(got.flatten().sort().values, w.flatten())
+
+
 def test_fp32_route_equals_the_kernel_route_on_the_cpu():
     """The fp32 route calls the step loop itself; the bf16 route reaches
     it through kernel M's wrapper, which on CPU tensors runs it: on fp32
